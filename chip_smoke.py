@@ -14,12 +14,13 @@ Phases, each printed as one JSON line:
    events;
 4. kernel_bwd: the same for K2 (the sampler's gradient) at the training
    path's shapes (728 queries: 128 denoising, 300 track slots, 300 detect)
-   and edge cases, in f32 and bf16; then the bounds of the TPU kernels not
-   ported yet (S5-S7);
-5. kernel_variants: holds the study's kernels S2-S4 (`fwd_v1`, `fwd_v2`,
-   `fwd_v3`) against the plain sampler and their own plain versions at the
-   study's inputs and at edge cases, with 64 and 128 queries a block, and
-   S1 (`take_along_axis`) against `torch.gather`, exactly; times each;
+   and edge cases, in f32 and bf16;
+5. kernel_variants: holds the study's kernels S2-S7 (`fwd_v1`, `fwd_v2`,
+   `fwd_v3`, `fwd_v45` as v4 and v5, `fwd_nocy`, `fwd_v6`, `fwd_v7`,
+   `fwd_v8`) against the plain sampler and their own plain versions at the
+   study's inputs and at edge cases, with 64 and 128 queries a block (and
+   256 for v7 and v8), and S1 (`take_along_axis`) against `torch.gather`,
+   exactly; times each;
 6. study: the sampler study through its entry points
    (`mo_yolo_tpu_torch.scripts.kernel_variants_bench.main(["--parity"])`,
    `micro_peak_bench`, `kernel_study_shapes`, `hbm_bw_bench`), one JSON
@@ -59,7 +60,9 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 KERNELS = ["ms_deform_attn_fwd", "ms_deform_attn_bwd", "take_along_axis",
            "ms_deform_attn_fwd_v1", "ms_deform_attn_fwd_v2",
-           "ms_deform_attn_fwd_v3"]
+           "ms_deform_attn_fwd_v3", "ms_deform_attn_fwd_v45",
+           "ms_deform_attn_fwd_nocy", "ms_deform_attn_fwd_v6",
+           "ms_deform_attn_fwd_v7", "ms_deform_attn_fwd_v8"]
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and f32 CUDA-core flop/s
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
@@ -280,9 +283,8 @@ def _rel_err(got, want):
 
 def phase_kernel_bwd():
     """Hold K2 against the plain gradient at the training path's shapes and
-    at edge cases; time both; then the bounds of the kernels not ported
-    (S5-S7).
-    Returns the main-path record (1536x800, bf16).
+    at edge cases; time both. Returns the main-path record (1536x800,
+    bf16).
 
     Tolerances, each relative to the largest magnitude of the tensor:
     f32 d_loc and d_attn 1e-5 (another summation order over D); f32
@@ -349,27 +351,10 @@ def phase_kernel_bwd():
                     lambda: ms_deform_attn_backward(value, levels_, loc,
                                                     attn, g)),
                 **bound_bwd(value, levels_, loc, attn)}
-    emit("kernel_bwd", checks=results, timing=timing,
-         unported=unported_bounds())
+    emit("kernel_bwd", checks=results, timing=timing)
     main = timing["1536x800/bfloat16"]
     return {**main, "max_abs_err":
             results["main_1536x800/bfloat16"]["max_abs_err"]}
-
-
-def unported_bounds():
-    """The TPU kernels still to port, S5-S7
-    (`scripts/kernel_variants_bench.py`: `_fwd_like_v0`, `fwd_v7`,
-    `fwd_v8`). They compute K1's function on the study's inputs (Q=600,
-    bf16 value, loc in [0.05, 0.95]), so their bound is K1's there."""
-    import torch
-
-    from mo_yolo_tpu_torch.scripts.kernel_variants_bench import make_inputs
-    out = {}
-    for name in LEVELS:
-        w, h = (int(n) for n in name.split("x"))
-        out[name] = bound(*make_inputs(
-            h, w, torch.Generator().manual_seed(0), device="cuda"))
-    return {"S5-S7": out}
 
 
 def bound_gather(v, idx, axis):
@@ -387,18 +372,117 @@ def bound_gather(v, idx, axis):
 
 # --------------------------------------------------------- kernel_variants
 
-VARIANT_KERNELS = ("ms_deform_attn_fwd_v1", "ms_deform_attn_fwd_v2",
-                   "ms_deform_attn_fwd_v3")
+VARIANT_KERNELS = tuple(KERNELS[3:])      # the study's forward variants
+
+
+def bound_nocy(value, levels, loc, attn):
+    """nocy's least time, counted as the function needs it: each point
+    sums the whole two columns of its level (Hl rows each), and a column's
+    sum is the same for every tap that touches it. So the bytes are the
+    distinct columns this data touches, read once, plus loc, attn and the
+    output; the flops one add per value of those columns plus 2 per x tap
+    and element. `bound_ms_design` counts what this design does instead:
+    2 flops per value of every column every tap reads."""
+    import torch
+    b, S, h, d = value.shape
+    q = loc.shape[1]
+    esize = value.element_size()
+    rows, taps, reads = 0, 0, 0
+    for l, (hl, wl) in enumerate(levels):
+        x0 = torch.floor(loc[:, :, :, l, :, 0] * wl - 0.5)       # [b,q,h,P]
+        seen = torch.zeros(b, h, wl, dtype=torch.bool, device=value.device)
+        for dx in (0, 1):
+            ix = x0 + dx
+            inb = (ix >= 0) & (ix <= wl - 1)
+            bi = torch.arange(b, device=value.device)[:, None, None, None]
+            hi = torch.arange(h, device=value.device)[None, None, :, None]
+            seen[bi.expand_as(ix)[inb], hi.expand_as(ix)[inb],
+                 ix[inb].long()] = True
+            taps += int(inb.sum())
+            reads += int(inb.sum()) * hl
+        rows += int(seen.sum()) * hl
+    small = loc.numel() * 4 + attn.numel() * 4 + b * q * h * d * esize
+    nbytes = rows * d * esize + small
+    design = 2 * reads * d
+    return _roofline(nbytes, rows * d + 2 * taps * d,
+                     bound_ms_design=max(nbytes / PEAK_BYTES_PER_S,
+                                         design / PEAK_F32_FLOPS) * 1e3,
+                     flops_design=design)
+
+
+def hold_variant(rule, got, want, own_of, value, what):
+    """Hold a study variant's output `got` to its rule; return its errors.
+    `want` is the f32 sampler on `value.float()`, `own_of(v)` the variant's
+    own plain version on value `v`.
+
+    f32, every rule: max abs error within 1e-5 of the plain sampler and of
+    the variant's own plain version (the same f32 arithmetic in another
+    order; TF32 off); "own" (nocy, another sum on purpose) only of its own,
+    within 1e-5 of max(1, that tensor's largest magnitude) (its sums run
+    over up to 100 rows).
+    bf16, "sampler" (S2-S4, f32 inside): within 1e-2 + 1e-2·|want| of the
+    f32 result on the same bf16 values, and of its own on them (one bf16
+    rounding of the output).
+    bf16, "rounding" (S5-S7, which round intermediates to bf16 where the
+    TPU kernels do): within 2^-7 of max(1, largest |own|) (one bf16 ulp at
+    the tensor's scale) of its own plain version on the same bf16 operands,
+    with a mean error at most a tenth of its mean error against the f32
+    sampler, which shows the rounding points are the TPU's; and within
+    2.5e-2 + 1e-2·|want| of the f32 sampler.
+    bf16, "own": within one bf16 ulp of its own on the same bf16 operands."""
+    import torch
+    F32_ATOL, BF16_TOL = 1e-5, 1e-2
+    BF16_ULP, BF16_SAMPLER_ATOL, MEAN_SHARE = 2.0 ** -7, 2.5e-2, 0.1
+    bf16 = value.dtype == torch.bfloat16
+    own = own_of(value if bf16 and rule != "sampler" else value.float())
+    own = own.float()
+    d_own = (got.float() - own).abs()
+    d_smp = (got.float() - want).abs()
+    scale = max(1.0, float(own.abs().max()))
+    errs = {"own": float(d_own.max())}
+    if rule != "own":
+        errs["sampler"] = float(d_smp.max())
+    if rule == "own":
+        tol = (BF16_ULP if bf16 else F32_ATOL) * scale
+        check(math.isfinite(errs["own"]) and errs["own"] <= tol,
+              f"{what}: max err {errs['own']} against its own plain version "
+              f"over {tol}")
+    elif not bf16:
+        for k, e in errs.items():
+            check(math.isfinite(e) and e <= F32_ATOL,
+                  f"{what}: max err {e} against the plain {k}")
+    elif rule == "sampler":
+        for k, diff, ref in (("sampler", d_smp, want), ("own", d_own, own)):
+            check(math.isfinite(errs[k]) and bool(
+                (diff <= BF16_TOL + BF16_TOL * ref.abs()).all()),
+                f"{what}: max err {errs[k]} against the plain {k}")
+    else:
+        errs["mean_own"] = float(d_own.mean())
+        errs["mean_sampler"] = float(d_smp.mean())
+        check(math.isfinite(errs["own"]) and
+              errs["own"] <= BF16_ULP * scale,
+              f"{what}: max err {errs['own']} against its own plain version, "
+              f"over one bf16 ulp at scale {scale}")
+        check(errs["mean_own"] <= MEAN_SHARE * errs["mean_sampler"],
+              f"{what}: mean err {errs['mean_own']} against its own plain "
+              f"version is not a tenth of {errs['mean_sampler']} against the "
+              f"sampler: it does not round where the TPU kernel does")
+        check(bool((d_smp <= BF16_SAMPLER_ATOL + BF16_TOL * want.abs()).all()),
+              f"{what}: max err {errs['sampler']} against the f32 sampler")
+    return errs
 
 
 def phase_kernel_variants(device="cuda"):
-    """Hold S2-S4 against the plain sampler and their own plain versions,
-    and S1 against `torch.gather`; time each. f32: max abs error within
-    1e-5 (the same f32 arithmetic in another order). bf16: within 1e-2 +
-    1e-2·|want| of the f32 result on the same bf16 values (one bf16
-    rounding of the output). Returns one record per kernel for the
-    `kernels` line (1536x800, bf16 value, 64 queries a block; S1 at
-    [19200, 256] along axis 0)."""
+    """Hold S2-S7 against the plain sampler and their own plain versions,
+    and S1 against `torch.gather`; time each. Returns one record per kernel
+    for the `kernels` line (1536x800, bf16 value, the wrapper's default
+    queries a block: 64, 128 for v8; v45 as v4; S1 at [19200, 256] along
+    axis 0).
+
+    Each variant is held to its rule (`hold_variant`); nothing in bounds
+    gives exactly zero."""
+    import functools
+
     import torch
 
     from mo_yolo_tpu_torch.ops import deform_attn_variants as dv
@@ -409,10 +493,30 @@ def phase_kernel_variants(device="cuda"):
     from mo_yolo_tpu_torch.scripts.micro_peak_bench import (GATHER_SHAPES,
                                                             gather_inputs)
     torch.backends.cuda.matmul.allow_tf32 = False
-    F32_ATOL, BF16_TOL = 1e-5, 1e-2
-    variants = dict(zip(VARIANT_KERNELS, ((dv.fwd_v1, dv.fwd_v1_torch),
-                                          (dv.fwd_v2, dv.fwd_v2_torch),
-                                          (dv.fwd_v3, dv.fwd_v3_torch))))
+    # label -> (kernel, wrapper, plain version, queries a block, rule):
+    # the rule `hold_variant` holds the variant to
+    variants = {
+        "v1": ("ms_deform_attn_fwd_v1", dv.fwd_v1, dv.fwd_v1_torch, (64, 128),
+               "sampler"),
+        "v2": ("ms_deform_attn_fwd_v2", dv.fwd_v2, dv.fwd_v2_torch, (64, 128),
+               "sampler"),
+        "v3": ("ms_deform_attn_fwd_v3", dv.fwd_v3, dv.fwd_v3_torch, (64, 128),
+               "sampler"),
+        "v4": ("ms_deform_attn_fwd_v45", dv.fwd_v45, dv.fwd_v45_torch,
+               (64, 128), "rounding"),
+        "v5": ("ms_deform_attn_fwd_v45",
+               functools.partial(dv.fwd_v45, compact_cy=False),
+               functools.partial(dv.fwd_v45_torch, compact_cy=False),
+               (64, 128), "rounding"),
+        "nocy": ("ms_deform_attn_fwd_nocy", dv.fwd_nocy, dv.fwd_nocy_torch,
+                 (64, 128), "own"),
+        "v6": ("ms_deform_attn_fwd_v6", dv.fwd_v6, dv.fwd_v6_torch, (64, 128),
+               "rounding"),
+        "v7": ("ms_deform_attn_fwd_v7", dv.fwd_v7, dv.fwd_v7_torch,
+               (64, 128, 256), "rounding"),
+        "v8": ("ms_deform_attn_fwd_v8", dv.fwd_v8, dv.fwd_v8_torch,
+               (64, 128, 256), "rounding"),
+    }
 
     def study_inputs(name, dt):
         w, h = (int(n) for n in name.split("x"))
@@ -431,46 +535,48 @@ def phase_kernel_variants(device="cuda"):
         cases.append((case, lambda dt, kw=kw: sampler_inputs(
             dtype=dt, device=device, **kw)))
     results = {}
+    maxima = {label: {} for label in variants}
+
+    def worst(label, key, err):
+        maxima[label][key] = max(maxima[label].get(key, 0.0), err)
+
     for case, make in cases:
         for dt in (torch.float32, torch.bfloat16):
             value, levels, loc, attn = make(dt)
             want = ms_deform_attn_torch(value.float(), levels, loc, attn)
-            for kname, (fn, plain) in variants.items():
-                for tq in (64, 128):
+            for label, (kname, fn, plain, tqs, rule) in variants.items():
+                for tq in tqs:
                     got = fn(value, levels, loc, attn, TQ=tq)
                     torch.cuda.synchronize()
                     check(got.dtype == dt and got.shape == want.shape,
-                          f"{kname} {case}: output {got.dtype} "
+                          f"{label} {case}: output {got.dtype} "
                           f"{tuple(got.shape)}")
-                    own = plain(value.float(), levels, loc, attn, TQ=tq)
-                    errs = {}
-                    for ref_name, ref in (("sampler", want), ("own", own)):
-                        diff = (got.float() - ref).abs()
-                        errs[ref_name] = float(diff.max())
-                        ok = errs[ref_name] <= F32_ATOL \
-                            if dt == torch.float32 else \
-                            bool((diff <= BF16_TOL + BF16_TOL *
-                                  ref.abs()).all())
-                        check(math.isfinite(errs[ref_name]) and ok,
-                              f"{kname} {case} {dt} TQ={tq}: max err "
-                              f"{errs[ref_name]} against the plain "
-                              f"{ref_name}")
+                    errs = hold_variant(
+                        rule, got, want,
+                        lambda v: plain(v, levels, loc, attn, TQ=tq),
+                        value, f"{label} {case} {dt} TQ={tq}")
                     if case == "all_out_of_bounds":
-                        check(not got.any(), f"{kname} {case}: not zero")
-                    results[f"{kname}/{case}/{str(dt)[6:]}/tq{tq}"] = errs
+                        check(not got.any(), f"{label} {case}: not zero")
+                    for k, e in errs.items():
+                        worst(label, f"{k}/{str(dt)[6:]}", e)
+                    results[f"{label}/{case}/{str(dt)[6:]}/tq{tq}"] = errs
     timing = {}
     for name in LEVELS:
         for dt in (torch.bfloat16, torch.float32):
             value, levels, loc, attn = study_inputs(name, dt)
             bnd = bound(value, levels, loc, attn)
-            for kname, (fn, plain) in variants.items():
-                timing[f"{kname}/{name}/{str(dt)[6:]}"] = {
+            for label, (kname, fn, plain, _, _) in variants.items():
+                if label == "v5":           # v45's kernel, timed as v4
+                    continue
+                timing[f"{label}/{name}/{str(dt)[6:]}"] = {
                     "ms": time_ms(lambda: fn(value, levels, loc, attn)),
                     "device_ms": device_time_ms(
                         lambda: fn(value, levels, loc, attn)),
                     "plain_ms": time_ms(
                         lambda: plain(value, levels, loc, attn), iters=10,
-                        warmup=2), **bnd}
+                        warmup=2),
+                    **(bound_nocy(value, levels, loc, attn)
+                       if label == "nocy" else bnd)}
     gather = {}
     for S, N, axis in GATHER_SHAPES:
         v, idx = gather_inputs(S, N, axis, torch.device(device))
@@ -490,15 +596,19 @@ def phase_kernel_variants(device="cuda"):
             "plain_ms": time_ms(lambda: take_along_axis_torch(v, idx, axis)),
             "library_ms": time_ms(lambda: torch.gather(v, axis, idx64)),
             **bound_gather(v, idx, axis)}
-    emit("kernel_variants", checks=results, timing=timing, gather=gather)
+    emit("kernel_variants", checks=results, maxima=maxima, timing=timing,
+         gather=gather)
     recs = {"take_along_axis": gather["[19200,256] axis=0"]}
-    for kname in VARIANT_KERNELS:
+    for label, (kname, *_rest) in variants.items():
+        if label == "v5":
+            continue
+        key = "own" if variants[label][4] == "own" else "sampler"
         recs[kname] = {
-            **timing[f"{kname}/1536x800/bfloat16"],
-            "ms_640x640": timing[f"{kname}/640x640/bfloat16"]["ms"],
+            **timing[f"{label}/1536x800/bfloat16"],
+            "ms_640x640": timing[f"{label}/640x640/bfloat16"]["ms"],
             "max_abs_err": max(
-                results[f"{kname}/study_{name}/float32/tq{tq}"]["sampler"]
-                for name in LEVELS for tq in (64, 128))}
+                results[f"{label}/study_{name}/float32/tq{tq}"][key]
+                for name in LEVELS for tq in variants[label][3])}
     return recs
 
 
@@ -507,7 +617,7 @@ def phase_study():
     variant held to the plain sampler (`--parity`) and timed at both sizes,
     the micro-benchmarks, the three routes across sizes and the memory
     bandwidth. Each prints its own JSON lines. Launch counts are set to 0
-    before and read after: S1-S4 must each have been launched."""
+    before and read after: S1-S7 must each have been launched."""
     from mo_yolo_tpu_torch.scripts import (hbm_bw_bench, kernel_study_shapes,
                                            kernel_variants_bench,
                                            micro_peak_bench)
@@ -587,7 +697,8 @@ def _wrappers():
     from mo_yolo_tpu_torch.ops.gather import take_along_axis
     return dict(zip(KERNELS, (ms_deform_attn, ms_deform_attn_backward,
                               take_along_axis, dv.fwd_v1, dv.fwd_v2,
-                              dv.fwd_v3)))
+                              dv.fwd_v3, dv.fwd_v45, dv.fwd_nocy, dv.fwd_v6,
+                              dv.fwd_v7, dv.fwd_v8)))
 
 
 def counts():
@@ -1083,6 +1194,7 @@ def main() -> int:
     launches = train["launches_total"]
     keys = ("max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
             "bound_by")
+    design = ("bound_ms_design",)   # what the design moves, where it differs
     csrc = "mo_yolo_tpu_torch/ops/csrc"
     kernels = [{
         "name": "ms_deform_attn_fwd", "route": "cuda",
@@ -1097,20 +1209,27 @@ def main() -> int:
         "source": f"{csrc}/ms_deform_attn_bwd.cu",
         "replaces": "mo_yolo_tpu/ops/deform_attn_pallas.py:149",
         "launches": launches["ms_deform_attn_bwd"],
-        **{k: k2[k] for k in keys}, "library_ms": None}]
+        **{k: k2[k] for k in keys + design}, "library_ms": None}]
     # the study's kernels: launches are the study phase's, the path that
     # runs them; the streaming and training paths launch none
     for name, replaces in (
             ("take_along_axis", "scripts/micro_peak_bench.py:88"),
             ("ms_deform_attn_fwd_v1", "scripts/kernel_variants_bench.py:40"),
             ("ms_deform_attn_fwd_v2", "scripts/kernel_variants_bench.py:137"),
-            ("ms_deform_attn_fwd_v3", "scripts/kernel_variants_bench.py:211")):
+            ("ms_deform_attn_fwd_v3", "scripts/kernel_variants_bench.py:211"),
+            ("ms_deform_attn_fwd_v45", "scripts/kernel_variants_bench.py:335"),
+            ("ms_deform_attn_fwd_nocy",
+             "scripts/kernel_variants_bench.py:390"),
+            ("ms_deform_attn_fwd_v6", "scripts/kernel_variants_bench.py:494"),
+            ("ms_deform_attn_fwd_v7", "scripts/kernel_variants_bench.py:553"),
+            ("ms_deform_attn_fwd_v8", "scripts/kernel_variants_bench.py:665")):
         rec = study_recs[name]
         kernels.append({
             "name": name, "route": "cuda", "source": f"{csrc}/{name}.cu",
             "replaces": replaces, "launches": study_launches[name],
             "launches_train": launches[name],
             **{k: rec[k] for k in keys},
+            **{k: rec[k] for k in design if k in rec},
             "library_ms": rec.get("library_ms")})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

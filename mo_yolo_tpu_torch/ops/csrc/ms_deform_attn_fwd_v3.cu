@@ -26,70 +26,6 @@
 
 #define THREADS 1024
 
-// 16 bytes of the value type as N floats.
-template <typename T>
-struct Vec;
-
-template <>
-struct Vec<float> {
-  static constexpr int N = 4;
-  static __device__ __forceinline__ void load(const float* p, float* v) {
-    const float4 r = *reinterpret_cast<const float4*>(p);
-    v[0] = r.x; v[1] = r.y; v[2] = r.z; v[3] = r.w;
-  }
-  static __device__ __forceinline__ void store(float* p, const float* v) {
-    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
-  }
-};
-
-template <>
-struct Vec<__nv_bfloat16> {
-  static constexpr int N = 8;
-  static __device__ __forceinline__ void load(const __nv_bfloat16* p,
-                                              float* v) {
-    const uint4 r = *reinterpret_cast<const uint4*>(p);
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&r);
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      const float2 f = __bfloat1622float2(h[k]);
-      v[2 * k] = f.x;
-      v[2 * k + 1] = f.y;
-    }
-  }
-  static __device__ __forceinline__ void store(__nv_bfloat16* p,
-                                               const float* v) {
-    uint4 r;
-    __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&r);
-#pragma unroll
-    for (int k = 0; k < 4; ++k)
-      h[k] = __floats2bfloat162_rn(v[2 * k], v[2 * k + 1]);
-    *reinterpret_cast<uint4*>(p) = r;
-  }
-};
-
-template <>
-struct Vec<__half> {
-  static constexpr int N = 8;
-  static __device__ __forceinline__ void load(const __half* p, float* v) {
-    const uint4 r = *reinterpret_cast<const uint4*>(p);
-    const __half2* h = reinterpret_cast<const __half2*>(&r);
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      const float2 f = __half22float2(h[k]);
-      v[2 * k] = f.x;
-      v[2 * k + 1] = f.y;
-    }
-  }
-  static __device__ __forceinline__ void store(__half* p, const float* v) {
-    uint4 r;
-    __half2* h = reinterpret_cast<__half2*>(&r);
-#pragma unroll
-    for (int k = 0; k < 4; ++k)
-      h[k] = __floats2half2_rn(v[2 * k], v[2 * k + 1]);
-    *reinterpret_cast<uint4*>(p) = r;
-  }
-};
-
 // value [B,S,H,D]; loc [B,Q,H,L,P,2] f32; attn [B,Q,H,L,P] f32;
 // out [B,Q,H*D]. D is a multiple of Vec<T>::N and rows are 16-byte
 // aligned. G, a power of two <= 32, is the number of lanes that carry one

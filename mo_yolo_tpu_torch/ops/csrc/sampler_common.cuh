@@ -1,7 +1,10 @@
-// What the forward-sampler variants (ms_deform_attn_fwd_v1/v2/v3.cu) share:
-// the level table, the conversions between the value dtype and f32, the
-// coordinate rounding, the staging of a query tile's loc and attn into
-// shared memory, and one point's hat-weighted sample (v1 and v2).
+// What the forward-sampler variants (ms_deform_attn_fwd_*.cu) share: the
+// level table, the conversions between the value dtype and f32 and the
+// rounding of an f32 intermediate to the value dtype, the coordinate
+// rounding, the staging of a query tile's loc and attn into shared memory,
+// one point's hat-weighted sample (v1 and v2), 16-byte row pieces (v3 and
+// v7) and two-element row pieces with the value dtype's packed product
+// (v45, nocy and v6).
 
 #pragma once
 
@@ -49,6 +52,13 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
 template <>
 __device__ __forceinline__ __half from_f32<__half>(float v) {
   return __float2half(v);
+}
+
+// An f32 intermediate rounded to the value dtype and back: where the TPU
+// kernel casts to the value dtype, the port's kernels round here.
+template <typename T>
+__device__ __forceinline__ float round_to(float v) {
+  return to_f32(from_f32<T>(v));
 }
 
 // Pixel coordinate loc*n - 0.5 with the plain version's two roundings: a
@@ -101,4 +111,186 @@ __device__ __forceinline__ float hat_sample(const T* __restrict__ vl,
     s += hat(y, fy) * t;
   }
   return s;
+}
+
+// 16 bytes of the value type as N floats.
+template <typename T>
+struct Vec;
+
+template <>
+struct Vec<float> {
+  static constexpr int N = 4;
+  static __device__ __forceinline__ void load(const float* p, float* v) {
+    const float4 r = *reinterpret_cast<const float4*>(p);
+    v[0] = r.x; v[1] = r.y; v[2] = r.z; v[3] = r.w;
+  }
+  static __device__ __forceinline__ void store(float* p, const float* v) {
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  }
+};
+
+template <>
+struct Vec<__nv_bfloat16> {
+  static constexpr int N = 8;
+  static __device__ __forceinline__ void load(const __nv_bfloat16* p,
+                                              float* v) {
+    const uint4 r = *reinterpret_cast<const uint4*>(p);
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&r);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const float2 f = __bfloat1622float2(h[k]);
+      v[2 * k] = f.x;
+      v[2 * k + 1] = f.y;
+    }
+  }
+  static __device__ __forceinline__ void store(__nv_bfloat16* p,
+                                               const float* v) {
+    uint4 r;
+    __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&r);
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      h[k] = __floats2bfloat162_rn(v[2 * k], v[2 * k + 1]);
+    *reinterpret_cast<uint4*>(p) = r;
+  }
+};
+
+template <>
+struct Vec<__half> {
+  static constexpr int N = 8;
+  static __device__ __forceinline__ void load(const __half* p, float* v) {
+    const uint4 r = *reinterpret_cast<const uint4*>(p);
+    const __half2* h = reinterpret_cast<const __half2*>(&r);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const float2 f = __half22float2(h[k]);
+      v[2 * k] = f.x;
+      v[2 * k + 1] = f.y;
+    }
+  }
+  static __device__ __forceinline__ void store(__half* p, const float* v) {
+    uint4 r;
+    __half2* h = reinterpret_cast<__half2*>(&r);
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      h[k] = __floats2half2_rn(v[2 * k], v[2 * k + 1]);
+    *reinterpret_cast<uint4*>(p) = r;
+  }
+};
+
+// Two neighbouring elements of a row as a float2, and the value dtype's
+// packed pair: `round` rounds a float2 to it; `mul(a, w)` rounds a and w to
+// it and multiplies them there (one `__hmul2` in bf16 and fp16, which is
+// correctly rounded, as the TPU kernel's product in the value dtype),
+// returned as floats.
+template <typename T>
+struct Pair;
+
+template <>
+struct Pair<float> {
+  static __device__ __forceinline__ float2 load(const float* p) {
+    return *reinterpret_cast<const float2*>(p);
+  }
+  static __device__ __forceinline__ float2 round(float2 v) { return v; }
+  static __device__ __forceinline__ float2 mul(float2 a, float w) {
+    return make_float2(a.x * w, a.y * w);
+  }
+  static __device__ __forceinline__ void store(float* p, float2 v) {
+    *reinterpret_cast<float2*>(p) = v;
+  }
+};
+
+template <>
+struct Pair<__nv_bfloat16> {
+  static __device__ __forceinline__ float2 load(const __nv_bfloat16* p) {
+    return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+  }
+  static __device__ __forceinline__ float2 round(float2 v) {
+    return __bfloat1622float2(__floats2bfloat162_rn(v.x, v.y));
+  }
+  static __device__ __forceinline__ float2 mul(float2 a, float w) {
+    return __bfloat1622float2(__hmul2(__floats2bfloat162_rn(a.x, a.y),
+                                      __float2bfloat162_rn(w)));
+  }
+  static __device__ __forceinline__ void store(__nv_bfloat16* p, float2 v) {
+    *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(v.x, v.y);
+  }
+};
+
+template <>
+struct Pair<__half> {
+  static __device__ __forceinline__ float2 load(const __half* p) {
+    return __half22float2(*reinterpret_cast<const __half2*>(p));
+  }
+  static __device__ __forceinline__ float2 round(float2 v) {
+    return __half22float2(__floats2half2_rn(v.x, v.y));
+  }
+  static __device__ __forceinline__ float2 mul(float2 a, float w) {
+    return __half22float2(__hmul2(__floats2half2_rn(a.x, a.y),
+                                  __float2half2_rn(w)));
+  }
+  static __device__ __forceinline__ void store(__half* p, float2 v) {
+    *reinterpret_cast<__half2*>(p) = __floats2half2_rn(v.x, v.y);
+  }
+};
+
+// v1's skeleton with two elements a lane, shared by the v45, nocy and v6
+// kernels. Block (tile, b) owns queries [tile*TQ, tile*TQ + TQ) of batch b
+// with all heads; the tile's loc and attn ([nq, H, L, P, 2] and
+// [nq, H, L, P] f32) are staged into shared memory with coalesced loads.
+// G lanes (a power of two, 2G >= D) carry the row of one (q, h) pair, two
+// elements a lane, so a warp carries 32/G pairs at once (two at D=32).
+// For each pair, every lane of the warp calls
+//   body(lp, ap, vb, row, live) -> float2,
+// lp and ap the pair's loc and attn, vb the pair's head and first element
+// in batch b's value, row the distance in elements between pixels, and
+// `live` false for a lane with no element (D < 2G) or no pair (the warp's
+// last round); such a lane must not load, but reaches every shuffle. The
+// live lanes store the result as elements d0, d0 + 1 of the pair's row.
+template <typename T, typename Body>
+__device__ __forceinline__ void walk_pairs(const T* __restrict__ value,
+                                           const float* __restrict__ loc,
+                                           const float* __restrict__ attn,
+                                           T* __restrict__ out, int S, int Q,
+                                           int H, int D, int L, int P, int TQ,
+                                           int G, Body body) {
+  extern __shared__ float smem[];
+  const int LP = L * P;
+  const int b = blockIdx.y;
+  const int q0 = blockIdx.x * TQ;
+  const int nq = min(TQ, Q - q0);  // the last tile may be partial
+  const int n_pairs = nq * H;
+  float* s_loc = smem;                           // [nq, H, L, P, 2]
+  float* s_attn = smem + (size_t)TQ * H * LP * 2;  // [nq, H, L, P]
+  const long long first = ((long long)b * Q + q0) * H;  // first (q, h) row
+  stage(s_loc, loc + first * LP * 2, n_pairs * LP * 2);
+  stage(s_attn, attn + first * LP, n_pairs * LP);
+  __syncthreads();
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int n_warps = blockDim.x >> 5;
+  const int per_warp = 32 / G, slot = lane / G;
+  const int d0 = (lane & (G - 1)) * 2;
+  const long long row = (long long)H * D;
+  // the trip count depends on the warp alone, so every lane reaches the
+  // body's shuffles
+  for (int base = warp * per_warp; base < n_pairs;
+       base += n_warps * per_warp) {
+    const bool live = base + slot < n_pairs && d0 < D;
+    const int pair = min(base + slot, n_pairs - 1);  // pair = q_local*H + h
+    const int h = pair % H;
+    const T* vb = value + (long long)b * S * row + (long long)h * D +
+                  min(d0, D - 2);
+    const float2 r = body(s_loc + pair * LP * 2, s_attn + pair * LP, vb, row,
+                          live);
+    if (live) Pair<T>::store(out + (first + pair) * D + d0, r);
+  }
+}
+
+// G for `walk_pairs`: the least power of two with 2G >= D; 0 where the
+// skeleton does not take D (odd, or more than 64 elements).
+static inline int pair_lanes(int D) {
+  if (D < 2 || D % 2 != 0 || D > 64) return 0;
+  int G = 1;
+  while (2 * G < D) G *= 2;
+  return G;
 }

@@ -1,12 +1,14 @@
-"""Forward-sampler variants of the sampler study: v1, v2 and v3, each a
-plain PyTorch version and the wrapper of its CUDA kernel (counterpart of
-`fwd_v1`, `fwd_v2` and `fwd_v3` in `scripts/kernel_variants_bench.py`).
+"""Forward-sampler variants of the sampler study: v1-v8 and the nocy
+ablation, each a plain PyTorch version and the wrapper of its CUDA kernel
+(counterparts of `fwd_v1`, `fwd_v2`, `fwd_v3`, `_fwd_like_v0` with
+`_kernel_v45`/`_kernel_nocy`/`_kernel_v6`, `fwd_v7` and `fwd_v8` in
+`scripts/kernel_variants_bench.py`).
 
-All three compute the function of `ops.deform_attn.ms_deform_attn`, with
-its shapes: value [B,S,H,D], loc [B,Q,H,L,P,2], attn [B,Q,H,L,P], output
-[B,Q,H·D] in the value dtype; loc and attn are held in f32 and sums
-accumulate in f32. `TQ` is the number of queries one block owns; a last
-partial tile is padded (plain versions) or masked (kernels).
+Each computes the function of `ops.deform_attn.ms_deform_attn` (nocy on
+purpose not), with its shapes: value [B,S,H,D], loc [B,Q,H,L,P,2], attn
+[B,Q,H,L,P], output [B,Q,H·D] in the value dtype; loc and attn are held in
+f32. `TQ` is the number of queries one block owns; a last partial tile is
+padded (plain versions) or masked (kernels).
 
 What each studies, and what its kernel does on the card:
 
@@ -21,12 +23,27 @@ What each studies, and what its kernel does on the card:
 - v3 (`csrc/ms_deform_attn_fwd_v3.cu`): the levels fused into one flat loop
   over the L·P·4 taps, the attention weight folded into the x weight, rows
   read by sub-groups of a warp with 16-byte loads. No layout preparation.
+- v4/v5 (`csrc/ms_deform_attn_fwd_v45.cu`): intermediates rounded to the
+  value dtype, u = t·cy a packed product in it; v1's grid, two elements a
+  lane. v4 hands a tap's y weights from one lane to the row's others, v5
+  computes them in every lane.
+- nocy (`csrc/ms_deform_attn_fwd_nocy.cu`): no y weight, the sum over a
+  level's whole column; wrong on purpose (the TPU's ablation).
+- v6 (`csrc/ms_deform_attn_fwd_v6.cu`): only the x weights rounded, the
+  point sum per level; v45's grid.
+- v7 (`csrc/ms_deform_attn_fwd_v7.cu`): v3's arithmetic and sub-group warp
+  on v2's grid, with v2's layout preparation.
+- v8 (`csrc/ms_deform_attn_fwd_v8.cu`): hat weights with attn in the x
+  weight, intermediates rounded to the value dtype, the point sum per y row
+  before the y-sum; v2's kernel, grid and layout preparation.
 
-The plain versions follow the JAX functions' arithmetic (the one-hot
-matrix products, with their casts to the value dtype). `fwd_v1_torch` and
-`fwd_v2_torch` share one formulation, `_hat_sampler_torch`: the two TPU
-kernels differ in their grid, not in their arithmetic. `fwd_v3_torch`
-builds the block-diagonal table and the guarded weights of `_kernel_v3`.
+The plain versions follow the JAX kernels' arithmetic (the one-hot or hat
+matrix products, with their casts to the value dtype at the same places),
+and the kernels keep those rounding points: in bf16 a kernel agrees with
+its own plain version far more closely than with the f32 sampler.
+`fwd_v1_torch` and `fwd_v2_torch` share `_hat_sampler_torch`, and
+`fwd_v7_torch` is `fwd_v3_torch`: those TPU kernels differ in their grid,
+not in their arithmetic.
 
 On a CPU tensor a wrapper computes its plain version; on a CUDA tensor it
 launches its kernel or raises. `fwd_v1.launches` etc. count launches.
@@ -45,6 +62,8 @@ from mo_yolo_tpu_torch.ops.deform_attn import (_DTYPE_CODE, Shapes, _check,
 
 # what one block may take of an SM's shared memory on the card (227 KB)
 MAX_DYNAMIC_SMEM = 232448
+# v8's kernel holds a query's 2P candidate rows in registers
+V8_MAX_POINTS = 8
 
 
 # ------------------------------------------------------------ plain versions
@@ -184,6 +203,144 @@ def fwd_v3_torch(value: torch.Tensor, shapes: Shapes, loc: torch.Tensor,
     return _point_sum(s, Q, Qp, P, cdtype)
 
 
+def fwd_v7_torch(value: torch.Tensor, shapes: Shapes, loc: torch.Tensor,
+                 attn: torch.Tensor, TQ: int = 64) -> torch.Tensor:
+    """The plain version of v7: `_kernel_v7` computes `_kernel_v3`'s
+    arithmetic with the same casts in the same places (`fwd_v3_torch`); the
+    TPU kernels differ only in their grid."""
+    return fwd_v3_torch(value, shapes, loc, attn, TQ)
+
+
+def _one_hot_pair(c: torch.Tensor, n: int, w0: torch.Tensor,
+                  w1: torch.Tensor) -> torch.Tensor:
+    """The one-hot taps of `_kernel_v45`, `_kernel_nocy` and `_kernel_v6`:
+    [..., n] holding w0 at floor(c) and w1 at floor(c) + 1; a tap out of
+    range matches no position. c, w0, w1 [...] f32."""
+    c0 = torch.floor(c)[..., None]
+    iota = torch.arange(n, dtype=torch.float32, device=c.device)
+    zero = torch.zeros((), dtype=torch.float32, device=c.device)
+    return torch.where(iota == c0, w0[..., None], zero) + \
+        torch.where(iota == c0 + 1, w1[..., None], zero)
+
+
+def _level_coords(locr, attnr, lvl, hl, wl):
+    """x = loc_x·Wl − 0.5, its fraction tx, the same for y, and attn."""
+    x = locr[..., lvl, 0] * wl - 0.5
+    y = locr[..., lvl, 1] * hl - 0.5
+    return x, x - torch.floor(x), y, y - torch.floor(y), attnr[..., lvl]
+
+
+def _finish(acc: torch.Tensor, Q: int, cdtype: torch.dtype) -> torch.Tensor:
+    """acc [B,H,Qp,D] f32 -> [B,Q,H·D] in the value dtype."""
+    B, H, Qp, D = acc.shape
+    return acc.to(cdtype).permute(0, 2, 1, 3).reshape(B, Qp, H * D)[:, :Q]
+
+
+def fwd_v45_torch(value: torch.Tensor, shapes: Shapes, loc: torch.Tensor,
+                  attn: torch.Tensor, TQ: int = 64,
+                  compact_cy: bool = True) -> torch.Tensor:
+    """The plain version of v4 (`compact_cy`) and v5, the arithmetic of
+    `_kernel_v45`: per level the one-hot x weights (1 − tx)·a and tx·a
+    rounded to the value dtype; the product with the level's table (f32
+    result) rounded to the value dtype; the one-hot y weights in the value
+    dtype, built [R,Hl] and expanded by a one-hot product (v4) or built at
+    [R,Hl·D] (v5), the same values; u = t·cy in the value dtype; the y-sum in
+    f32, rounded to the value dtype; per level the point sum in f32."""
+    cdtype = value.dtype
+    P, D = loc.shape[4], value.shape[3]
+    dev = value.device
+    tables = level_tables(value, shapes)
+    locr, attnr, Q, Qp = point_rows(loc, attn, TQ)
+    B, H, R = attnr.shape[:3]
+    acc = torch.zeros(B, H, Qp, D, dtype=torch.float32, device=dev)
+    for lvl, (hl, wl) in enumerate(shapes):
+        x, tx, y, ty, aw = _level_coords(locr, attnr, lvl, hl, wl)
+        cx = _one_hot_pair(x, wl, (1.0 - tx) * aw, tx * aw).to(cdtype)
+        t = _dot_f32(cx, tables[lvl]).to(cdtype)              # [B,H,R,hl*D]
+        if compact_cy:
+            cy = _one_hot_pair(y, hl, 1.0 - ty, ty).to(cdtype)    # [B,H,R,hl]
+            e_mat = (torch.arange(hl, device=dev)[:, None] ==
+                     torch.arange(hl * D, device=dev) // D).to(cdtype)
+            cyb = _dot_f32(cy, e_mat).to(cdtype)
+        else:
+            yi = (torch.arange(hl * D, device=dev) // D).float()
+            zero = torch.zeros((), device=dev)
+            y0 = torch.floor(y)[..., None]
+            cyb = (torch.where(yi == y0, (1.0 - ty)[..., None], zero) +
+                   torch.where(yi == y0 + 1, ty[..., None], zero)
+                   ).to(cdtype)
+        u = t * cyb                                           # value dtype
+        s = u.float().view(B, H, R, hl, D).sum(3)
+        acc += s.to(cdtype).float().view(B, H, Qp, P, D).sum(3)
+    return _finish(acc, Q, cdtype)
+
+
+def fwd_nocy_torch(value: torch.Tensor, shapes: Shapes, loc: torch.Tensor,
+                   attn: torch.Tensor, TQ: int = 64) -> torch.Tensor:
+    """The plain version of nocy, the arithmetic of `_kernel_nocy`, wrong on
+    purpose: the one-hot x weights times a, rounded to the value dtype, the
+    product with the level's table (f32), then the sum over ALL Hl rows of
+    the level (no y weight) and the point sum, both f32."""
+    cdtype = value.dtype
+    P, D = loc.shape[4], value.shape[3]
+    tables = level_tables(value, shapes)
+    locr, attnr, Q, Qp = point_rows(loc, attn, TQ)
+    B, H, R = attnr.shape[:3]
+    acc = torch.zeros(B, H, Qp, D, dtype=torch.float32, device=value.device)
+    for lvl, (hl, wl) in enumerate(shapes):
+        x, tx, _, _, aw = _level_coords(locr, attnr, lvl, hl, wl)
+        cx = (_one_hot_pair(x, wl, 1.0 - tx, tx) * aw[..., None]).to(cdtype)
+        t = _dot_f32(cx, tables[lvl])                         # [B,H,R,hl*D]
+        s = t.view(B, H, R, hl, D).sum(3)
+        acc += s.view(B, H, Qp, P, D).sum(3)
+    return _finish(acc, Q, cdtype)
+
+
+def fwd_v6_torch(value: torch.Tensor, shapes: Shapes, loc: torch.Tensor,
+                 attn: torch.Tensor, TQ: int = 64) -> torch.Tensor:
+    """The plain version of v6, the arithmetic of `_kernel_v6`: the one-hot
+    x weights times a, rounded to the value dtype (the only rounding before
+    the output); the product (f32), the one-hot y weights (f32), then per
+    level the point sum before the y-sum, both f32."""
+    cdtype = value.dtype
+    P, D = loc.shape[4], value.shape[3]
+    tables = level_tables(value, shapes)
+    locr, attnr, Q, Qp = point_rows(loc, attn, TQ)
+    B, H, R = attnr.shape[:3]
+    acc = torch.zeros(B, H, Qp, D, dtype=torch.float32, device=value.device)
+    for lvl, (hl, wl) in enumerate(shapes):
+        x, tx, y, ty, aw = _level_coords(locr, attnr, lvl, hl, wl)
+        cx = (_one_hot_pair(x, wl, 1.0 - tx, tx) * aw[..., None]).to(cdtype)
+        cyb = _one_hot_pair(y, hl, 1.0 - ty, ty)              # [B,H,R,hl]
+        u = _dot_f32(cx, tables[lvl]).view(B, H, R, hl, D) * cyb[..., None]
+        su = u.view(B, H, Qp, P, hl, D).sum(3)                # point sum
+        acc += su.sum(3)                                      # then y-sum
+    return _finish(acc, Q, cdtype)
+
+
+def fwd_v8_torch(value: torch.Tensor, shapes: Shapes, loc: torch.Tensor,
+                 attn: torch.Tensor, TQ: int = 128) -> torch.Tensor:
+    """The plain version of v8, the arithmetic of `_kernel_v8`: hat weights
+    relu(1 − |x − c|) times a over x, rounded to the value dtype; the
+    product (f32); the hat weights over y (f32); u = t·cy rounded to the
+    value dtype; per level the point sum of u in f32 per y row, rounded to
+    the value dtype, then the y-sum in f32."""
+    cdtype = value.dtype
+    P, D = loc.shape[4], value.shape[3]
+    tables = level_tables(value, shapes)
+    locr, attnr, Q, Qp = point_rows(loc, attn, TQ)
+    B, H, R = attnr.shape[:3]
+    acc = torch.zeros(B, H, Qp, D, dtype=torch.float32, device=value.device)
+    for lvl, (hl, wl) in enumerate(shapes):
+        x, _, y, _, aw = _level_coords(locr, attnr, lvl, hl, wl)
+        cx = (hat_weights(x, wl) * aw[..., None]).to(cdtype)
+        t = _dot_f32(cx, tables[lvl]).view(B, H, R, hl, D)
+        u = (t * hat_weights(y, hl)[..., None]).to(cdtype)
+        su = u.float().view(B, H, Qp, P, hl, D).sum(3)        # point sum
+        acc += su.to(cdtype).float().sum(3)                   # then y-sum
+    return _finish(acc, Q, cdtype)
+
+
 # ------------------------------------------------------------------ kernels
 
 def _check_tile(loc: torch.Tensor, TQ: int, heads_in_block: bool) -> None:
@@ -200,15 +357,17 @@ def _check_tile(loc: torch.Tensor, TQ: int, heads_in_block: bool) -> None:
 
 def _c_launch(name: str, counter: Callable, value: torch.Tensor,
               shapes: Shapes, loc: torch.Tensor, attn: torch.Tensor,
-              out: torch.Tensor, dims: Tuple[int, ...], TQ: int
-              ) -> torch.Tensor:
+              out: torch.Tensor, dims: Tuple[int, ...], TQ: int,
+              extra: Tuple[int, ...] = ()) -> torch.Tensor:
     """Launch `csrc/<name>.cu` on the current stream; raise on a CUDA
-    error; add one to `counter.launches`. dims = (B, S, Q, H, D, L, P)."""
+    error; add one to `counter.launches`. dims = (B, S, Q, H, D, L, P);
+    `extra` are the kernel's int arguments after TQ (v45's compact_cy)."""
     from mo_yolo_tpu_torch.utils import cuda_build
 
     fn = getattr(cuda_build.load(name), name)
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + \
+        fn.argtypes = [ctypes.c_void_p] * 4 + \
+            [ctypes.c_int] * (9 + len(extra)) + \
             [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p]
         fn.restype = ctypes.c_int
     hw = (ctypes.c_int * (2 * len(shapes)))(
@@ -216,8 +375,8 @@ def _c_launch(name: str, counter: Callable, value: torch.Tensor,
     with torch.cuda.device(value.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(value.data_ptr(), loc.data_ptr(), attn.data_ptr(),
-                 out.data_ptr(), _DTYPE_CODE[value.dtype], *dims, TQ, hw,
-                 stream)
+                 out.data_ptr(), _DTYPE_CODE[value.dtype], *dims, TQ, *extra,
+                 hw, stream)
     if err != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
     counter.launches += 1
@@ -238,29 +397,66 @@ def _operands(value: torch.Tensor, shapes: Shapes, loc: torch.Tensor,
     return loc, attn, (B, S, Q, H, D, L, P)
 
 
-def _native_layout(name: str, counter: Callable, value, shapes, loc, attn,
-                   TQ: int, vector_rows: bool = False):
-    """A variant that reads the operands as they are, all heads in a block.
-    Returns (launch, finish): `launch()` runs only the kernel, `finish(out)`
-    gives the [B,Q,H·D] result. `vector_rows`: the kernel reads rows with
-    16-byte loads, so a row must be a multiple of 16 bytes, at most 512,
-    on a 16-byte boundary."""
-    loc, attn, dims = _operands(value, shapes, loc, attn)
-    _check_tile(loc, TQ, heads_in_block=True)
-    B, _, Q, H, D = dims[:5]
-    row_bytes = D * value.element_size()
-    if vector_rows and (row_bytes % 16 or row_bytes > 512 or
-                        value.data_ptr() % 16):
+def _check_rows(name: str, value: torch.Tensor, rows: str) -> None:
+    """What a kernel's row loads need. "vec16": 16-byte loads, so a row is
+    a multiple of 16 bytes, at most 512, on a 16-byte boundary (v3, v7).
+    "pairs": two elements a lane (`walk_pairs`), so D is even and at most
+    64 and value lies on a two-element boundary (v45, nocy, v6)."""
+    D, esize = value.shape[3], value.element_size()
+    row_bytes = D * esize
+    if rows == "vec16" and (row_bytes % 16 or row_bytes > 512 or
+                            value.data_ptr() % 16):
         raise ValueError(f"{name} needs rows of a multiple of 16 bytes, at "
                          f"most 512, 16-byte aligned; D={D} in {value.dtype} "
                          f"is {row_bytes} bytes at offset "
                          f"{value.data_ptr() % 16}")
+    if rows == "pairs" and (D % 2 or D > 64 or
+                            value.data_ptr() % (2 * esize)):
+        raise ValueError(f"{name} needs an even D of at most 64 on a "
+                         f"two-element boundary; got D={D} at offset "
+                         f"{value.data_ptr() % (2 * esize)} bytes")
+
+
+def _native_layout(name: str, counter: Callable, value, shapes, loc, attn,
+                   TQ: int, rows: str = "", extra: Tuple[int, ...] = ()):
+    """A variant that reads the operands as they are, all heads in a block.
+    Returns (launch, finish): `launch()` runs only the kernel, `finish(out)`
+    gives the [B,Q,H·D] result. `rows`: the kernel's row rule
+    (`_check_rows`)."""
+    loc, attn, dims = _operands(value, shapes, loc, attn)
+    _check_tile(loc, TQ, heads_in_block=True)
+    _check_rows(name, value, rows)
+    B, _, Q, H, D = dims[:5]
 
     def launch():
         out = torch.empty(B, Q, H * D, dtype=value.dtype, device=value.device)
         return _c_launch(name, counter, value, shapes, loc, attn, out, dims,
-                         TQ)
+                         TQ, extra)
     return launch, lambda out: out
+
+
+def _head_major(name: str, counter: Callable, value, shapes, loc, attn,
+                TQ: int, rows: str = ""):
+    """A variant on v2's grid: value [B,H,S,D], loc [B,H,Q,L,P,2], attn
+    [B,H,Q,L,P], each a transposed copy. Returns (launch, finish):
+    `launch()` runs only the kernel and gives [B,H,Q,D]; `finish(out)`
+    transposes it back to [B,Q,H·D]."""
+    loc, attn, dims = _operands(value, shapes, loc, attn)
+    _check_tile(loc, TQ, heads_in_block=False)
+    B, _, Q, H, D = dims[:5]
+    value_hm = value.permute(0, 2, 1, 3).contiguous()
+    _check_rows(name, value_hm, rows)
+    loc_hm = loc.permute(0, 2, 1, 3, 4, 5).contiguous()
+    attn_hm = attn.permute(0, 2, 1, 3, 4).contiguous()
+
+    def launch():
+        out = torch.empty(B, H, Q, D, dtype=value.dtype, device=value.device)
+        return _c_launch(name, counter, value_hm, shapes, loc_hm, attn_hm,
+                         out, dims, TQ)
+
+    def finish(out):
+        return out.permute(0, 2, 1, 3).reshape(B, Q, H * D)
+    return launch, finish
 
 
 def prepare_v1(value, shapes, loc, attn, TQ=64):
@@ -270,38 +466,59 @@ def prepare_v1(value, shapes, loc, attn, TQ=64):
 
 
 def prepare_v2(value, shapes, loc, attn, TQ=64):
-    """v2's layout preparation: value [B,H,S,D], loc [B,H,Q,L,P,2], attn
-    [B,H,Q,L,P], each a transposed copy. Returns (launch, finish):
-    `launch()` runs only the kernel and gives [B,H,Q,D]; `finish(out)`
-    transposes it back to [B,Q,H·D]."""
-    loc, attn, dims = _operands(value, shapes, loc, attn)
-    _check_tile(loc, TQ, heads_in_block=False)
-    B, _, Q, H, D = dims[:5]
-    value_hm = value.permute(0, 2, 1, 3).contiguous()
-    loc_hm = loc.permute(0, 2, 1, 3, 4, 5).contiguous()
-    attn_hm = attn.permute(0, 2, 1, 3, 4).contiguous()
-
-    def launch():
-        out = torch.empty(B, H, Q, D, dtype=value.dtype, device=value.device)
-        return _c_launch("ms_deform_attn_fwd_v2", fwd_v2, value_hm, shapes,
-                         loc_hm, attn_hm, out, dims, TQ)
-
-    def finish(out):
-        return out.permute(0, 2, 1, 3).reshape(B, Q, H * D)
-    return launch, finish
+    """v2's layout preparation (`_head_major`)."""
+    return _head_major("ms_deform_attn_fwd_v2", fwd_v2, value, shapes, loc,
+                       attn, TQ)
 
 
 def prepare_v3(value, shapes, loc, attn, TQ=64):
     """v3 needs no layout preparation, but rows its 16-byte loads can take
     (`_native_layout`)."""
     return _native_layout("ms_deform_attn_fwd_v3", fwd_v3, value, shapes, loc,
-                          attn, TQ, vector_rows=True)
+                          attn, TQ, rows="vec16")
 
 
-def _run(prepare, plain, value, shapes, loc, attn, TQ):
+def prepare_v45(value, shapes, loc, attn, TQ=64, compact_cy=True):
+    """v4 (`compact_cy`) and v5 need no layout preparation, but rows of two
+    elements a lane (`_native_layout`)."""
+    return _native_layout("ms_deform_attn_fwd_v45", fwd_v45, value, shapes,
+                          loc, attn, TQ, rows="pairs",
+                          extra=(int(bool(compact_cy)),))
+
+
+def prepare_nocy(value, shapes, loc, attn, TQ=64):
+    """As `prepare_v45`, for the nocy ablation."""
+    return _native_layout("ms_deform_attn_fwd_nocy", fwd_nocy, value, shapes,
+                          loc, attn, TQ, rows="pairs")
+
+
+def prepare_v6(value, shapes, loc, attn, TQ=64):
+    """As `prepare_v45`, for v6."""
+    return _native_layout("ms_deform_attn_fwd_v6", fwd_v6, value, shapes,
+                          loc, attn, TQ, rows="pairs")
+
+
+def prepare_v7(value, shapes, loc, attn, TQ=64):
+    """v7's layout preparation is v2's (`_head_major`), with rows its
+    16-byte loads can take."""
+    return _head_major("ms_deform_attn_fwd_v7", fwd_v7, value, shapes, loc,
+                       attn, TQ, rows="vec16")
+
+
+def prepare_v8(value, shapes, loc, attn, TQ=128):
+    """v8's layout preparation is v2's (`_head_major`); the kernel holds a
+    query's 2P candidate rows in registers, so P is at most 8."""
+    if loc.shape[4] > V8_MAX_POINTS:
+        raise ValueError(f"ms_deform_attn_fwd_v8 takes at most "
+                         f"{V8_MAX_POINTS} points, got {loc.shape[4]}")
+    return _head_major("ms_deform_attn_fwd_v8", fwd_v8, value, shapes, loc,
+                       attn, TQ)
+
+
+def _run(prepare, plain, value, shapes, loc, attn, TQ, **kw):
     if value.device.type == "cpu":
-        return plain(value, shapes, loc, attn, TQ)
-    launch, finish = prepare(value, shapes, loc, attn, TQ)
+        return plain(value, shapes, loc, attn, TQ, **kw)
+    launch, finish = prepare(value, shapes, loc, attn, TQ, **kw)
     return finish(launch())
 
 
@@ -331,6 +548,56 @@ def fwd_v3(value: torch.Tensor, shapes: Shapes, loc: torch.Tensor,
     return _run(prepare_v3, fwd_v3_torch, value, shapes, loc, attn, TQ)
 
 
+def fwd_v45(value: torch.Tensor, shapes: Shapes, loc: torch.Tensor,
+            attn: torch.Tensor, TQ: int = 64,
+            compact_cy: bool = True) -> torch.Tensor:
+    """Variants v4 (`compact_cy`) and v5. CPU tensor: `fwd_v45_torch`. CUDA
+    tensor: the kernel `csrc/ms_deform_attn_fwd_v45.cu`, or an exception
+    (an odd D or one over 64 raises); never the plain version.
+    `fwd_v45.launches` counts launches."""
+    return _run(prepare_v45, fwd_v45_torch, value, shapes, loc, attn, TQ,
+                compact_cy=compact_cy)
+
+
+def fwd_nocy(value: torch.Tensor, shapes: Shapes, loc: torch.Tensor,
+             attn: torch.Tensor, TQ: int = 64) -> torch.Tensor:
+    """The nocy ablation (wrong on purpose). CPU tensor: `fwd_nocy_torch`.
+    CUDA tensor: the kernel `csrc/ms_deform_attn_fwd_nocy.cu`, or an
+    exception, as `fwd_v45`. `fwd_nocy.launches` counts launches."""
+    return _run(prepare_nocy, fwd_nocy_torch, value, shapes, loc, attn, TQ)
+
+
+def fwd_v6(value: torch.Tensor, shapes: Shapes, loc: torch.Tensor,
+           attn: torch.Tensor, TQ: int = 64) -> torch.Tensor:
+    """Variant v6. CPU tensor: `fwd_v6_torch`. CUDA tensor: the kernel
+    `csrc/ms_deform_attn_fwd_v6.cu`, or an exception, as `fwd_v45`.
+    `fwd_v6.launches` counts launches."""
+    return _run(prepare_v6, fwd_v6_torch, value, shapes, loc, attn, TQ)
+
+
+def fwd_v7(value: torch.Tensor, shapes: Shapes, loc: torch.Tensor,
+           attn: torch.Tensor, TQ: int = 64) -> torch.Tensor:
+    """Variant v7, its head-major transposes included. CPU tensor:
+    `fwd_v7_torch`. CUDA tensor: the kernel `csrc/ms_deform_attn_fwd_v7.cu`,
+    or an exception (v3's 16-byte row rule); never the plain version.
+    `fwd_v7.launches` counts launches."""
+    return _run(prepare_v7, fwd_v7_torch, value, shapes, loc, attn, TQ)
+
+
+def fwd_v8(value: torch.Tensor, shapes: Shapes, loc: torch.Tensor,
+           attn: torch.Tensor, TQ: int = 128) -> torch.Tensor:
+    """Variant v8, its head-major transposes included. CPU tensor:
+    `fwd_v8_torch`. CUDA tensor: the kernel `csrc/ms_deform_attn_fwd_v8.cu`,
+    or an exception (more than 8 points raises); never the plain version.
+    `fwd_v8.launches` counts launches."""
+    return _run(prepare_v8, fwd_v8_torch, value, shapes, loc, attn, TQ)
+
+
 fwd_v1.launches = 0
 fwd_v2.launches = 0
 fwd_v3.launches = 0
+fwd_v45.launches = 0
+fwd_nocy.launches = 0
+fwd_v6.launches = 0
+fwd_v7.launches = 0
+fwd_v8.launches = 0

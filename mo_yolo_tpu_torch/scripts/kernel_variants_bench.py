@@ -15,7 +15,19 @@ variant to the plain gather sampler in f32. Variants:
           transposes are part of the variant and of its time)
   v3      the levels fused into one pass, rows read by sub-groups of a warp
           with 16-byte loads
+  v4, v5  intermediates rounded to the value dtype, u = t*cy a packed
+          product in it, on v1's grid; v4 hands a tap's y weights from one
+          lane to the row's others, v5 computes them in every lane
+  v6      only the x weights rounded, the point sum per level, v4's grid
+  nocy    no y weight (wrong on purpose: the sum over a level's whole
+          column; left out of --parity)
+  v7      v3's arithmetic and warp on v2's grid (head-major, transposes
+          timed with it)
+  v8      v2's kernel and grid, hat weights with attn in the x weight,
+          intermediates in the value dtype, the point sum per y row before
+          the y-sum
   *t128   the same with 128 queries a block instead of 64
+  *t256   the same with 256 (v7, v8)
   vx      the one-hot-matmul algorithm in plain tensor code, f32 product
   vx2     vx with the product's result in the value dtype and the y-sum and
           point sum fused into one reduction
@@ -25,15 +37,15 @@ variant to the plain gather sampler in f32. Variants:
   vh      level 0 through the main-path kernel, the rest one-hot
   vh2     levels 0-1 through the kernel, the last one-hot
 
-The JAX script's v4, v5, v6, nocy, v7* and v8* are not here: their TPU
-kernels (`_fwd_like_v0`, `fwd_v7`, `fwd_v8`) are still to be ported.
+The names and queries a block are the JAX script's `VARIANTS`, each a
+hand-written CUDA kernel or plain tensor code on the card.
 
 Timing: the median, least and greatest of five runs of `--iters` calls
 after a warm-up, by CUDA events around back-to-back calls (the JAX script's
 slope method cancels a relay's dispatch cost, which has no counterpart
 here). That is the rate a caller sees: the slower of the host's launch path
 and the device. Beside it `device_ms` is the device's own time per call
-(the calls replayed from a CUDA graph), and for v0-v3 `kernel_only_ms` and
+(the calls replayed from a CUDA graph), and for v0-v8 `kernel_only_ms` and
 `kernel_only_device_ms` time the kernel alone on operands prepared once.
 A failing variant raises. One JSON line per variant and size.
 """
@@ -127,11 +139,27 @@ def fwd_vh(value, shapes, loc, attn, split=1):
 # name -> (function of (value, shapes, loc, attn), the variant's `prepare`
 # for a kernel-only time or None)
 VARIANTS: Dict[str, tuple] = {"v0": (ms_deform_attn, None)}
+
+
+def _kernel_variant(name: str, TQ: int, **kw) -> tuple:
+    return (functools.partial(getattr(dv, f"fwd_{name}"), TQ=TQ, **kw),
+            functools.partial(getattr(dv, f"prepare_{name}"), TQ=TQ, **kw))
+
+
 for _v in ("v1", "v2", "v3"):
     for _suffix, _tq in (("", 64), ("t128", 128)):
-        VARIANTS[_v + _suffix] = (
-            functools.partial(getattr(dv, f"fwd_{_v}"), TQ=_tq),
-            functools.partial(getattr(dv, f"prepare_{_v}"), TQ=_tq))
+        VARIANTS[_v + _suffix] = _kernel_variant(_v, _tq)
+VARIANTS.update({
+    "v4": _kernel_variant("v45", 64, compact_cy=True),
+    "v4t128": _kernel_variant("v45", 128, compact_cy=True),
+    "v5": _kernel_variant("v45", 64, compact_cy=False),
+    "v6": _kernel_variant("v6", 64),
+    "v6t128": _kernel_variant("v6", 128),
+    "nocy": _kernel_variant("nocy", 64),
+})
+for _v in ("v7", "v8"):
+    for _suffix, _tq in (("", 64), ("t128", 128), ("t256", 256)):
+        VARIANTS[_v + _suffix] = _kernel_variant(_v, _tq)
 VARIANTS.update({
     "vx": (fwd_vx, None),
     "vx2": (fwd_vx2, None),
@@ -165,13 +193,17 @@ def check_parity(h: int, w: int, device: torch.device,
                  names: Optional[Sequence[str]] = None,
                  q: int = 600) -> Dict[str, float]:
     """Every variant against the plain gather sampler on f32 inputs; raises
-    on an error over `PARITY_ATOL`. TF32 is off for the products."""
+    on an error over `PARITY_ATOL`. TF32 is off for the products. The nocy
+    ablation computes another sum on purpose and is left out, as the JAX
+    script leaves it out."""
     torch.backends.cuda.matmul.allow_tf32 = False
     v, shp, loc, aw = make_inputs(h, w, torch.Generator().manual_seed(0),
                                   q=q, dtype=torch.float32, device=device)
     ref = ms_deform_attn_torch(v, shp, loc, aw)
     errs = {}
     for name in names or list(VARIANTS):
+        if name == "nocy":
+            continue
         got = VARIANTS[name][0](v, shp, loc, aw)
         err = float((got - ref).abs().max())
         errs[name] = err

@@ -1,5 +1,5 @@
 """The port's CUDA kernels (K1 the sampler, K2 its gradient, and the
-sampler study's S1 gather and S2-S4 forward variants) and their wrappers
+sampler study's S1 gather and S2-S7 forward variants) and their wrappers
 (`mo_yolo_tpu_torch`).
 
 This file imports no JAX, so that its card tests also run on a machine
@@ -100,7 +100,10 @@ def test_backward_wrapper_on_cpu_is_the_plain_version():
 
 @pytest.mark.parametrize("name,n_args", [
     ("ms_deform_attn_fwd_v1", 15), ("ms_deform_attn_fwd_v2", 15),
-    ("ms_deform_attn_fwd_v3", 15), ("take_along_axis", 7)])
+    ("ms_deform_attn_fwd_v3", 15), ("take_along_axis", 7),
+    ("ms_deform_attn_fwd_v45", 16), ("ms_deform_attn_fwd_nocy", 15),
+    ("ms_deform_attn_fwd_v6", 15), ("ms_deform_attn_fwd_v7", 15),
+    ("ms_deform_attn_fwd_v8", 15)])
 def test_study_kernel_sources_have_their_c_entry_points(name, n_args):
     """Each study kernel's wrapper passes as many arguments as its C entry
     point takes, and each source names the TPU kernel it replaces."""
@@ -269,7 +272,15 @@ def test_tiny_stream_kernel_against_plain_on_card(card):
 
 # ------------------------------------------------- the study's kernels ----
 
-VARIANTS = ("v1", "v2", "v3")
+# the study's variants: name -> (the port's wrapper, keywords)
+VARIANTS = {"v1": ("v1", {}), "v2": ("v2", {}), "v3": ("v3", {}),
+            "v4": ("v45", {"compact_cy": True}),
+            "v5": ("v45", {"compact_cy": False}),
+            "nocy": ("nocy", {}), "v6": ("v6", {}), "v7": ("v7", {}),
+            "v8": ("v8", {})}
+# S2-S4 compute in f32 inside; S5-S7 round where the TPU kernels do
+F32_INSIDE = ("v1", "v2", "v3")
+ROUNDING = tuple(v for v in VARIANTS if v not in F32_INSIDE)
 
 
 def _no_plain_version(monkeypatch):
@@ -280,7 +291,8 @@ def _no_plain_version(monkeypatch):
     def forbidden(*a, **k):
         raise AssertionError("a plain version ran on a CUDA tensor")
     for name in ("fwd_v1_torch", "fwd_v2_torch", "fwd_v3_torch",
-                 "_hat_sampler_torch"):
+                 "_hat_sampler_torch", "fwd_v45_torch", "fwd_nocy_torch",
+                 "fwd_v6_torch", "fwd_v7_torch", "fwd_v8_torch"):
         monkeypatch.setattr(dv, name, forbidden)
     monkeypatch.setattr(gather, "take_along_axis_torch", forbidden)
     monkeypatch.setattr(torch, "gather", forbidden)
@@ -290,7 +302,7 @@ def _no_plain_version(monkeypatch):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("tq", [64, 128])
-@pytest.mark.parametrize("variant", VARIANTS)
+@pytest.mark.parametrize("variant", F32_INSIDE)
 def test_variant_kernel_at_a_study_shape_on_card(card, monkeypatch, variant,
                                                  tq):
     """S2-S4 at the study's 640x640 inputs (Q=600, H=8, D=32), f32 within
@@ -323,16 +335,18 @@ def test_variant_kernel_at_a_study_shape_on_card(card, monkeypatch, variant,
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("case", sorted(SAMPLER_CASES))
-@pytest.mark.parametrize("variant", VARIANTS)
+@pytest.mark.parametrize("variant", [v for v in VARIANTS if v != "nocy"])
 def test_variant_kernel_edge_cases_on_card(card, monkeypatch, variant, case):
     """A partial last tile, nothing in bounds (exactly zero), a batch of
-    two, D=8 rows."""
+    two, D=8 rows, in f32 against the plain sampler (nocy computes another
+    sum on purpose; its own test holds it to its plain version)."""
     import mo_yolo_tpu_torch.ops.deform_attn_variants as dv
     from mo_yolo_tpu_torch.ops.deform_attn import ms_deform_attn_torch
+    name, kw = VARIANTS[variant]
     value, shapes, loc, attn = _torch_inputs(case, card)
     want = ms_deform_attn_torch(value, shapes, loc, attn)
     _no_plain_version(monkeypatch)
-    got = getattr(dv, f"fwd_{variant}")(value, shapes, loc, attn, TQ=64)
+    got = getattr(dv, f"fwd_{name}")(value, shapes, loc, attn, TQ=64, **kw)
     torch.cuda.synchronize()
     torch.testing.assert_close(got, want, atol=F32_ATOL, rtol=0)
     if case == "all_out_of_bounds":
@@ -344,18 +358,64 @@ def test_variant_wrappers_raise_instead_of_falling_back(card, monkeypatch):
     import mo_yolo_tpu_torch.ops.deform_attn_variants as dv
     value, shapes, loc, attn = _torch_inputs("q10", card)
     _no_plain_version(monkeypatch)
-    for fn in (dv.fwd_v1, dv.fwd_v2, dv.fwd_v3):
+    for fn in (dv.fwd_v1, dv.fwd_v2, dv.fwd_v3, dv.fwd_v45, dv.fwd_nocy,
+               dv.fwd_v6, dv.fwd_v7, dv.fwd_v8):
         with pytest.raises(ValueError):
             fn(value[:, :, :, ::2], shapes, loc, attn)
         with pytest.raises(TypeError):
             fn(value.double(), shapes, loc, attn)
         with pytest.raises(ValueError):
             fn(value, shapes, loc, attn, TQ=10 ** 6)
-    # a row that is no multiple of 16 bytes: v3 raises, v1 takes it
+    # a row that is no multiple of 16 bytes: v3 and v7 raise, v1 takes it
     odd = torch.randn(1, value.shape[1], 2, 6, device=card)
-    with pytest.raises(ValueError, match="16 bytes"):
-        dv.fwd_v3(odd, shapes, loc, attn)
+    for fn in (dv.fwd_v3, dv.fwd_v7):
+        with pytest.raises(ValueError, match="16 bytes"):
+            fn(odd, shapes, loc, attn)
     assert dv.fwd_v1(odd, shapes, loc, attn).shape == (1, 10, 12)
+    # an odd D: the kernels with two elements a lane raise, v8 takes it
+    odd = torch.randn(1, value.shape[1], 2, 7, device=card)
+    for fn in (dv.fwd_v45, dv.fwd_nocy, dv.fwd_v6):
+        with pytest.raises(ValueError, match="even D"):
+            fn(odd, shapes, loc, attn)
+    assert dv.fwd_v8(odd, shapes, loc, attn).shape == (1, 10, 14)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tq", [64, 128])
+@pytest.mark.parametrize("variant", ROUNDING)
+def test_new_variant_kernel_matches_its_plain_version_on_card(
+        card, monkeypatch, variant, tq):
+    """S5-S7 at Q=70, H=2, D=8 against their own plain versions: f32
+    within 1e-5 (nocy's sums over whole columns: 1e-5 of max(1, its largest
+    magnitude)); bf16 on the same bf16 operands within one bf16 ulp at the
+    output's scale, 2^-7 of max(1, its largest magnitude), since kernel and
+    plain version round to bf16 at the same places. Each call is one
+    launch; nothing in bounds gives exactly zero."""
+    import mo_yolo_tpu_torch.ops.deform_attn_variants as dv
+    name, kw = VARIANTS[variant]
+    plain, fn = getattr(dv, f"fwd_{name}_torch"), getattr(dv, f"fwd_{name}")
+    value, shapes, loc, attn = _torch_inputs("q70", card)
+    vb = value.to(torch.bfloat16)
+    _, _, oloc, oattn = _torch_inputs("all_out_of_bounds", card)
+    oval = torch.randn(1, value.shape[1], 2, 8, device=card)
+    want = plain(value, shapes, loc, attn, TQ=tq, **kw)
+    want_b = plain(vb, shapes, loc, attn, TQ=tq, **kw).float()
+    _no_plain_version(monkeypatch)
+    before = fn.launches
+    got = fn(value, shapes, loc, attn, TQ=tq, **kw)
+    got_b = fn(vb, shapes, loc, attn, TQ=tq, **kw)
+    got_o = fn(oval, shapes, oloc, oattn, TQ=tq, **kw)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 3
+    scale = max(1.0, float(want.abs().max()))
+    torch.testing.assert_close(
+        got, want, rtol=0,
+        atol=F32_ATOL * (scale if variant == "nocy" else 1.0))
+    assert got_b.dtype == torch.bfloat16
+    torch.testing.assert_close(
+        got_b.float(), want_b, rtol=0,
+        atol=2.0 ** -7 * max(1.0, float(want_b.abs().max())))
+    assert got_o.shape == (1, 8, 16) and not got_o.any()
 
 
 @pytest.mark.gpu

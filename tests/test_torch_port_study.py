@@ -45,61 +45,168 @@ def jax_micro():
 
 # ---------------------------------------------------------------- (b) ----
 
+# study name -> (the JAX script's function, the port's variant, keywords)
+VARIANT_FUNCS = {
+    "v1": ("fwd_v1", "v1", {}),
+    "v2": ("fwd_v2", "v2", {}),
+    "v3": ("fwd_v3", "v3", {}),
+    "v4": ("fwd_v4", "v45", {"compact_cy": True}),
+    "v5": ("fwd_v4", "v45", {"compact_cy": False}),
+    "nocy": ("fwd_nocy", "nocy", {}),
+    "v6": ("fwd_v6", "v6", {}),
+    "v7": ("fwd_v7", "v7", {}),
+    "v8": ("fwd_v8", "v8", {}),
+}
+# the variants that keep the TPU kernels' rounding points in the value dtype
+ROUNDING_VARIANTS = ["v4", "v5", "nocy", "v6", "v7", "v8"]
+BF16_ULP = 2.0 ** -7
+
+
+def _interpret(jax_variants, variant, value, shapes, loc, attn, tq):
+    """The JAX script's TPU kernel for `variant`, in the Pallas
+    interpreter, as float32 numpy."""
+    fn, _, kw = VARIANT_FUNCS[variant]
+    with pltpu.force_tpu_interpret_mode():
+        out = getattr(jax_variants, fn)(jnp.asarray(value), shapes,
+                                        jnp.asarray(loc), jnp.asarray(attn),
+                                        TQ=tq, **kw)
+    return np.asarray(out.astype(jnp.float32))
+
+
+def _port(variant, plain=True):
+    """The port's plain version (or wrapper) of `variant`, keywords bound."""
+    from mo_yolo_tpu_torch.ops import deform_attn_variants as dv
+    _, name, kw = VARIANT_FUNCS[variant]
+    fn = getattr(dv, f"fwd_{name}_torch" if plain else f"fwd_{name}")
+    return lambda *a, **k: fn(*a, **kw, **k)
+
+
 @pytest.mark.parametrize("tq", [64, 16])    # Q=70: a partial tile either way
-@pytest.mark.parametrize("variant", ["v1", "v2", "v3"])
+@pytest.mark.parametrize("variant", list(VARIANT_FUNCS))
 def test_variant_plain_versions_match_pallas_interpret(jax_variants, variant,
                                                        tq):
     from mo_yolo_tpu_torch.ops import deform_attn_variants as dv
     from mo_yolo_tpu_torch.ops.deform_attn import ms_deform_attn_torch
     value, shapes, loc, attn = rand_sampler_inputs(seed=11)
-    with pltpu.force_tpu_interpret_mode():
-        want = np.asarray(getattr(jax_variants, f"fwd_{variant}")(
-            jnp.asarray(value), shapes, jnp.asarray(loc), jnp.asarray(attn),
-            TQ=tq))
+    want = _interpret(jax_variants, variant, value, shapes, loc, attn, tq)
     args = (torch.from_numpy(value), shapes, torch.from_numpy(loc),
             torch.from_numpy(attn))
-    plain = getattr(dv, f"fwd_{variant}_torch")(*args, TQ=tq)
+    plain = _port(variant)(*args, TQ=tq)
     assert plain.shape == want.shape == (1, 70, 16)
     np.testing.assert_allclose(plain.numpy(), want, atol=ATOL, rtol=0)
     # on a CPU tensor the wrapper is the plain version and launches nothing
-    wrapper = getattr(dv, f"fwd_{variant}")
+    wrapper = getattr(dv, f"fwd_{VARIANT_FUNCS[variant][1]}")
     before = wrapper.launches
-    assert torch.equal(wrapper(*args, TQ=tq), plain)
+    assert torch.equal(_port(variant, plain=False)(*args, TQ=tq), plain)
     assert wrapper.launches == before
-    np.testing.assert_allclose(plain.numpy(),
-                               ms_deform_attn_torch(*args).numpy(),
-                               atol=ATOL, rtol=0)
+    if variant != "nocy":       # nocy computes another sum on purpose
+        np.testing.assert_allclose(plain.numpy(),
+                                   ms_deform_attn_torch(*args).numpy(),
+                                   atol=ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("variant", ROUNDING_VARIANTS)
+def test_variant_plain_versions_match_pallas_interpret_in_bf16(jax_variants,
+                                                               variant):
+    """The rounding points: in bf16 the plain version and the interpreted
+    TPU kernel round to bf16 at the same places, so they agree to one bf16
+    ulp at the output's scale (2^-7 of its largest magnitude: f32 sums in
+    another order can move a rounding by one ulp; measured 0 here), and
+    their mean difference is under a tenth of the TPU kernel's own mean
+    error against the f32 sampler."""
+    from mo_yolo_tpu_torch.ops.deform_attn import ms_deform_attn_torch
+    value, shapes, loc, attn = rand_sampler_inputs(seed=12)
+    vb = jnp.asarray(value).astype(jnp.bfloat16)
+    want = _interpret(jax_variants, variant, vb, shapes, loc, attn, 16)
+    vt = torch.from_numpy(np.array(vb.astype(jnp.float32)))
+    args = (vt.to(torch.bfloat16), shapes, torch.from_numpy(loc),
+            torch.from_numpy(attn))
+    plain = _port(variant)(*args, TQ=16)
+    assert plain.dtype == torch.bfloat16
+    diff = np.abs(plain.float().numpy() - want)
+    assert diff.max() <= BF16_ULP * max(1.0, float(np.abs(want).max()))
+    if variant != "nocy":
+        ref = ms_deform_attn_torch(vt, shapes, *args[2:]).numpy()
+        assert diff.mean() <= 0.1 * np.abs(want - ref).mean()
 
 
 @pytest.mark.parametrize("case", ["q10", "all_out_of_bounds", "batch2"])
 def test_variant_plain_versions_on_edge_cases(case):
     """A short last tile, nothing in bounds (exactly zero) and a batch of
     two, against the plain gather sampler."""
-    from mo_yolo_tpu_torch.ops import deform_attn_variants as dv
     from mo_yolo_tpu_torch.ops.deform_attn import ms_deform_attn_torch
     value, shapes, loc, attn = SAMPLER_CASES[case]()
     args = (torch.from_numpy(value), shapes, torch.from_numpy(loc),
             torch.from_numpy(attn))
     want = ms_deform_attn_torch(*args)
-    for fn in (dv.fwd_v1_torch, dv.fwd_v2_torch, dv.fwd_v3_torch):
-        got = fn(*args, TQ=64)
+    for variant in VARIANT_FUNCS:
+        if variant == "nocy":
+            continue
+        got = _port(variant)(*args, TQ=64)
         np.testing.assert_allclose(got.numpy(), want.numpy(), atol=ATOL,
                                    rtol=0)
         if case == "all_out_of_bounds":
             assert not got.any()
 
 
-def test_variant_wrappers_validate_before_launching():
-    """What the kernels do not take raises; nothing falls back."""
+@pytest.mark.parametrize("case", ["q10", "all_out_of_bounds", "batch2"])
+def test_nocy_plain_version_on_edge_cases_matches_pallas_interpret(
+        jax_variants, case):
+    """nocy computes another sum on purpose: it is held to its TPU kernel
+    alone."""
+    value, shapes, loc, attn = SAMPLER_CASES[case]()
+    want = _interpret(jax_variants, "nocy", value, shapes, loc, attn, 64)
+    got = _port("nocy")(torch.from_numpy(value), shapes,
+                        torch.from_numpy(loc), torch.from_numpy(attn),
+                        TQ=64)
+    np.testing.assert_allclose(got.numpy(), want, atol=ATOL, rtol=0)
+    if case == "all_out_of_bounds":
+        assert not got.any()
+
+
+@pytest.mark.parametrize("name", ["v1", "v2", "v3", "v45", "nocy", "v6",
+                                  "v7", "v8"])
+def test_variant_wrappers_validate_before_launching(name):
+    """What the kernels do not take raises before anything is built or
+    launched; nothing falls back: `prepare_*` refuses a CPU tensor, a tile
+    too large for shared memory raises, and so does a plain version's tile
+    of no queries."""
     from mo_yolo_tpu_torch.ops import deform_attn_variants as dv
     value, shapes, loc, attn = (torch.from_numpy(a) if isinstance(
         a, np.ndarray) else a for a in SAMPLER_CASES["q10"]())
+    wrapper = getattr(dv, f"fwd_{name}")
+    before = wrapper.launches
     with pytest.raises(ValueError, match="unsupported device"):
-        dv.prepare_v1(value, shapes, loc, attn)          # a CPU tensor
+        getattr(dv, f"prepare_{name}")(value, shapes, loc, attn)
     with pytest.raises(ValueError, match="shared memory"):
         dv._check_tile(loc, 10 ** 6, heads_in_block=True)
     with pytest.raises(ValueError, match="TQ"):
-        dv.fwd_v1_torch(value, shapes, loc, attn, TQ=0)
+        getattr(dv, f"fwd_{name}_torch")(value, shapes, loc, attn, TQ=0)
+    assert wrapper.launches == before
+
+
+def test_variant_row_rules():
+    """The row loads each kernel takes: two elements a lane (v45, nocy, v6:
+    an even D of at most 64) and 16-byte rows (v3, v7); v8 takes at most 8
+    points."""
+    from mo_yolo_tpu_torch.ops import deform_attn_variants as dv
+    for D, ok in ((8, True), (32, True), (64, True), (6, True), (7, False),
+                  (66, False)):
+        v = torch.zeros(1, 4, 2, D)
+        if ok:
+            dv._check_rows("k", v, "pairs")
+        else:
+            with pytest.raises(ValueError, match="even D"):
+                dv._check_rows("k", v, "pairs")
+    dv._check_rows("k", torch.zeros(1, 4, 2, 8, dtype=torch.bfloat16),
+                   "vec16")
+    with pytest.raises(ValueError, match="16 bytes"):
+        dv._check_rows("k", torch.zeros(1, 4, 2, 6), "vec16")
+    dv._check_rows("k", torch.zeros(1, 4, 2, 7), "")
+    value, shapes, loc, attn = rand_sampler_inputs(Q=4, P=9)
+    with pytest.raises(ValueError, match="at most 8 points"):
+        dv.prepare_v8(torch.from_numpy(value), shapes, torch.from_numpy(loc),
+                      torch.from_numpy(attn))
 
 
 # ---------------------------------------------------------------- (c) ----
@@ -218,10 +325,8 @@ def test_study_inputs_follow_the_jax_script(jax_variants):
     # the same generator state gives the same inputs
     again = kb.make_inputs(320, 320, torch.Generator().manual_seed(0))
     assert torch.equal(got[0], again[0]) and torch.equal(got[2], again[2])
-    # the S5-S7 names wait for their kernels
-    assert set(kb.VARIANTS) == set(jax_variants.VARIANTS) - {
-        "v4", "v4t128", "v5", "v6", "v6t128", "nocy", "v7", "v7t128",
-        "v7t256", "v8", "v8t128", "v8t256"}
+    # every TPU kernel of the JAX script has its counterpart
+    assert set(kb.VARIANTS) == set(jax_variants.VARIANTS)
 
 
 def test_study_main_runs_on_the_cpu_with_the_plain_versions(capsys):
@@ -241,6 +346,34 @@ def test_study_main_runs_on_the_cpu_with_the_plain_versions(capsys):
     assert "parity v1 @320x320" in out and "parity vx3 @320x320" in out
     with pytest.raises(SystemExit):
         kb.main(["--device", "cpu", "--variants", "v9"])
+
+
+def test_study_main_runs_the_new_variants_on_the_cpu(capsys):
+    """v4 and v8 through the study's entry point at 8 queries."""
+    from mo_yolo_tpu_torch.scripts import kernel_variants_bench as kb
+    recs = kb.main(["--device", "cpu", "--iters", "1", "--q", "8",
+                    "--parity", "--variants", "v4,v8,nocy"])
+    assert [(r["size"], r["variant"]) for r in recs] == [
+        (size, name) for size in ("640x640", "1536x800")
+        for name in ("v4", "v8", "nocy")]
+    assert all(r["kernel_only_ms"] is None for r in recs)
+    out = capsys.readouterr().out
+    assert "parity v4 @320x320" in out and "parity v8 @320x320" in out
+    assert "parity nocy" not in out         # another sum, on purpose
+
+
+def test_study_table_queries_a_block_follow_the_jax_script():
+    """Each name's queries a block (the JAX table's TQ; v8 is 64 there,
+    though `fwd_v8` defaults to 128) and v4/v5's compact_cy."""
+    from mo_yolo_tpu_torch.scripts import kernel_variants_bench as kb
+    for name, (fn, prepare) in kb.VARIANTS.items():
+        if prepare is None:
+            continue
+        tq = 256 if name.endswith("t256") else \
+            128 if name.endswith("t128") else 64
+        assert fn.keywords["TQ"] == prepare.keywords["TQ"] == tq, name
+    assert kb.VARIANTS["v4"][0].keywords["compact_cy"] is True
+    assert kb.VARIANTS["v5"][0].keywords["compact_cy"] is False
 
 
 @pytest.mark.parametrize("name", ["vx", "vx2", "vx3", "vh", "vh2", "v0"])
