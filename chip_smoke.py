@@ -10,11 +10,13 @@ Phases, each printed as one JSON line:
    `mo_yolo_tpu_torch/ops/csrc` with nvcc (one process per source, all
    started together);
 3. kernel: holds K1 (the sampler) against its plain PyTorch version at the
-   streaming path's shapes and at edge cases, and times both with CUDA
-   events;
+   streaming path's shapes, at a clustered case (728 queries, every point
+   in [0.45, 0.55]) and at edge cases, and times both with CUDA events;
 4. kernel_bwd: the same for K2 (the sampler's gradient) at the training
-   path's shapes (728 queries: 128 denoising, 300 track slots, 300 detect)
-   and edge cases, in f32 and bf16;
+   path's shapes (728 queries: 128 denoising, 300 track slots, 300 detect),
+   the clustered case and edge cases, in f32 and bf16; holds K2's
+   intermediates (each corner slot's d_value row, the rows' counts) to the
+   plain rows form exactly, and times that form beside the plain gradient;
 5. kernel_variants: holds the study's kernels S2-S7 (`fwd_v1`, `fwd_v2`,
    `fwd_v3`, `fwd_v45` as v4 and v5, `fwd_nocy`, `fwd_v6`, `fwd_v7`,
    `fwd_v8`) against the plain sampler and their own plain versions at the
@@ -76,6 +78,9 @@ N_FRAMES, WARMUP = 20, 5
 # the training path's queries: 128 denoising (num_denoising 100 at 64 padded
 # GT rows gives one group of 2 x 64), 300 track slots, 300 detect queries
 Q_TRAIN, MAX_GT = 728, 64
+# every point in this range: training queries gather on a few objects, so
+# a d_value row collects hundreds of corners
+CLUSTERED = (0.45, 0.55)
 CLIP_LEN, TRAIN_STEPS = 5, 3
 
 
@@ -164,19 +169,27 @@ def bound_bwd(value, levels, loc, attn):
     the touched value rows, g, loc and attn read once, the whole d_value,
     d_loc and d_attn written once; flops 4 per corner value (the dot
     <g, v> and g·a·w into d_value). `bound_ms_design` counts what this
-    design moves instead: the zeroed f32 d_value buffer, one f32
-    read-modify-write of each touched row by the atomics, the reads, and
-    for bf16 the cast (f32 read, bf16 write)."""
+    design moves instead, each stage's reads and writes once: dots reads
+    the touched rows, g, loc and attn and writes d_loc, d_attn and each
+    slot's key and aw (int32/f32); the counts and cursors are zeroed, the
+    counts summed by tile and scanned into start; place reads key and aw
+    and writes a 16-byte record (slot, row, aw) for each in-bounds slot;
+    reduce reads the records and g again; every d_value row is written
+    once (the carries of rows that cross reduce blocks are left out: at
+    most one per block of 512 slots)."""
     b, S, h, d = value.shape
-    q = loc.shape[1]
+    q, L, P = loc.shape[1], loc.shape[3], loc.shape[4]
     rows, n_corner = touched(value, levels, loc)
     esize = value.element_size()
     g = b * q * h * d * esize
     meta = (loc.numel() + attn.numel()) * 4 * 2         # read, then d_ written
     nbytes = rows * d * esize + g + meta + value.numel() * esize
-    buf = value.numel() * 4
-    design = buf + rows * d * (esize + 8) + g + meta + \
-        (buf + value.numel() * esize if esize != 4 else 0)
+    n_slots, n_rows = b * q * h * L * P * 4, b * S * h
+    design = (rows * d * esize + 2 * g + meta + value.numel() * esize
+              + n_slots * 4 * (2 + 2)        # key/aw written, then read
+              + n_corner * 16 * 2            # records written, then read
+              + n_rows * 4 * 5)              # counts, cursors zeroed; the
+                                             # counts summed, scanned; start
     return _roofline(nbytes, 4 * n_corner * d,
                      bound_ms_design=design / PEAK_BYTES_PER_S * 1e3,
                      bytes_design=design)
@@ -207,6 +220,27 @@ def device_time_ms(fn, iters=20):
     return device_ms(fn, iters, torch.device("cuda"))
 
 
+def kernel_stages_ms(fn, n=10):
+    """Device ms per call of each kernel (and memset) `fn` launches, from
+    torch.profiler over n calls: where a multi-stage kernel's time goes."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0.0))
+        if us > 0:
+            out[e.key.split("<")[0].split("(")[0].replace("void ", "")] = \
+                us / n / 1e3
+    return out
+
+
 def phase_kernel():
     """Hold the kernel against the plain version; time both. Returns the
     main-path record (1536x800, bf16)."""
@@ -223,6 +257,8 @@ def phase_kernel():
         cases.append((f"main_{name}", dict(levels=levels)))
     small = ((12, 16), (6, 8), (3, 4))
     cases += [
+        ("clustered", dict(levels=LEVELS["1536x800"], q=Q_TRAIN,
+                           loc_range=CLUSTERED)),
         ("all_out_of_bounds", dict(levels=small, q=64, loc_range=(2.5, 3.5))),
         ("batch2", dict(levels=LEVELS["640x640"], b=2)),
         ("q77_h3", dict(levels=small, q=77, h=3)),
@@ -257,14 +293,17 @@ def phase_kernel():
                                                 "tol": tol}
     timing = {}
     for name, levels in LEVELS.items():
-        for dt in (torch.bfloat16, torch.float32):
+        for dt, label, kw in ((torch.bfloat16, "bfloat16", {}),
+                              (torch.float32, "float32", {}),
+                              (torch.bfloat16, "clustered/bfloat16",
+                               dict(q=Q_TRAIN, loc_range=CLUSTERED))):
             value, levels_, loc, attn = sampler_inputs(levels, dtype=dt,
-                                                       seed=1)
+                                                       seed=1, **kw)
             ms = time_ms(lambda: ms_deform_attn(value, levels_, loc, attn))
             plain = time_ms(lambda: ms_deform_attn_torch(value, levels_, loc,
                                                          attn), iters=20,
                             warmup=3)
-            timing[f"{name}/{str(dt)[6:]}"] = {
+            timing[f"{name}/{label}"] = {
                 "ms": ms, "plain_ms": plain,
                 "device_ms": device_time_ms(
                     lambda: ms_deform_attn(value, levels_, loc, attn)),
@@ -288,18 +327,22 @@ def phase_kernel_bwd():
 
     Tolerances, each relative to the largest magnitude of the tensor:
     f32 d_loc and d_attn 1e-5 (another summation order over D); f32
-    d_value 1e-4 (its sums are f32 atomics, whose order changes from run
-    to run); bf16 1e-2 (one bf16 rounding of d_value and of the inputs'
-    products)."""
+    d_value 1e-4 (a row's corners are summed in the order integer atomics
+    gave them their slots, which changes from run to run); bf16 1e-2 (one
+    bf16 rounding of d_value and of the inputs' products). The
+    intermediates (each corner slot's key, the rows' counts) exactly."""
     import torch
 
     from mo_yolo_tpu_torch.ops.deform_attn import (
-        ms_deform_attn_backward, ms_deform_attn_backward_torch)
+        _launch_bwd, ms_deform_attn_backward, ms_deform_attn_backward_rows_torch,
+        ms_deform_attn_backward_torch)
     torch.backends.cuda.matmul.allow_tf32 = False
     small = ((12, 16), (6, 8), (3, 4))
     cases = [(f"main_{name}", dict(levels=levels, q=Q_TRAIN))
              for name, levels in LEVELS.items()]
     cases += [
+        ("clustered", dict(levels=LEVELS["1536x800"], q=Q_TRAIN,
+                           loc_range=CLUSTERED)),
         ("all_out_of_bounds", dict(levels=small, q=64, loc_range=(2.5, 3.5))),
         ("batch2", dict(levels=LEVELS["640x640"], b=2, q=Q_TRAIN)),
         ("q77_h3", dict(levels=small, q=77, h=3)),
@@ -335,23 +378,56 @@ def phase_kernel_bwd():
                 "max_abs_err": max(float((a.float() - w).abs().max())
                                    for a, w in zip(got, want)),
                 "rel_err": errs, "tol": tols}
+    # the intermediates, exactly, at a small shape and a clustered one
+    rows_checks = {}
+    for name, kw in (("q77_h3", dict(levels=small, q=77, h=3)),
+                     ("clustered_640x640", dict(levels=LEVELS["640x640"],
+                                                q=Q_TRAIN,
+                                                loc_range=CLUSTERED))):
+        value, levels, loc, attn = sampler_inputs(**kw)
+        g = torch.randn(value.shape[0], loc.shape[1],
+                        value.shape[2] * value.shape[3],
+                        generator=torch.Generator().manual_seed(8)
+                        ).to(value.device)
+        *_, rows = _launch_bwd(value, levels, loc, attn, g, rows=True)
+        *_, want = ms_deform_attn_backward_rows_torch(value, levels, loc,
+                                                      attn, g)
+        for k in ("key", "counts", "start"):
+            check(torch.equal(rows[k], want[k]),
+                  f"K2 {name}: {k} differs from the plain rows form")
+        check(torch.equal(rows["ids"].long().sort().values,
+                          want["ids"].sort().values),
+              f"K2 {name}: ids are not the in-bounds slots")
+        rows_checks[name] = {"slots": rows["key"].numel(),
+                             "in_bounds": int(want["start"][-1]),
+                             "longest_row": int(want["counts"].max()),
+                             "exact": ["key", "counts", "start", "ids"]}
     timing = {}
     for name, levels in LEVELS.items():
-        for dt in (torch.bfloat16, torch.float32):
+        for dt, label, kw in ((torch.bfloat16, "bfloat16", {}),
+                              (torch.float32, "float32", {}),
+                              (torch.bfloat16, "clustered/bfloat16",
+                               dict(loc_range=CLUSTERED))):
             value, levels_, loc, attn = sampler_inputs(levels, q=Q_TRAIN,
-                                                       dtype=dt, seed=1)
+                                                       dtype=dt, seed=1, **kw)
             g = torch.randn(1, Q_TRAIN, H * D, device="cuda", dtype=dt)
             ms = time_ms(lambda: ms_deform_attn_backward(value, levels_, loc,
                                                          attn, g))
             plain = time_ms(lambda: ms_deform_attn_backward_torch(
                 value, levels_, loc, attn, g), iters=10, warmup=2)
-            timing[f"{name}/{str(dt)[6:]}"] = {
-                "ms": ms, "plain_ms": plain,
+            plain_rows = time_ms(lambda: ms_deform_attn_backward_rows_torch(
+                value, levels_, loc, attn, g), iters=10, warmup=2)
+            stages = (kernel_stages_ms(lambda: ms_deform_attn_backward(
+                value, levels_, loc, attn, g))
+                if dt == torch.bfloat16 else None)
+            timing[f"{name}/{label}"] = {
+                "ms": ms, "plain_ms": plain, "plain_rows_ms": plain_rows,
+                "stages_device_ms": stages,
                 "device_ms": device_time_ms(
                     lambda: ms_deform_attn_backward(value, levels_, loc,
                                                     attn, g)),
                 **bound_bwd(value, levels_, loc, attn)}
-    emit("kernel_bwd", checks=results, timing=timing)
+    emit("kernel_bwd", checks=results, rows=rows_checks, timing=timing)
     main = timing["1536x800/bfloat16"]
     return {**main, "max_abs_err":
             results["main_1536x800/bfloat16"]["max_abs_err"]}

@@ -1,10 +1,12 @@
-// What the forward-sampler variants (ms_deform_attn_fwd_*.cu) share: the
+// What the sampler kernels (K1 ms_deform_attn_fwd.cu, K2
+// ms_deform_attn_bwd.cu and the study's ms_deform_attn_fwd_*.cu) share: the
 // level table, the conversions between the value dtype and f32 and the
 // rounding of an f32 intermediate to the value dtype, the coordinate
 // rounding, the staging of a query tile's loc and attn into shared memory,
-// one point's hat-weighted sample (v1 and v2), 16-byte row pieces (v3 and
-// v7) and two-element row pieces with the value dtype's packed product
-// (v45, nocy and v6).
+// one point's hat-weighted sample (v1 and v2), 16-byte row pieces (v3, v7,
+// K1, K2), two-element row pieces with the value dtype's packed product
+// (v45, nocy and v6), and the sub-group row plan and a warp's points handed
+// out by shuffles (K1, K2).
 
 #pragma once
 
@@ -294,3 +296,186 @@ static inline int pair_lanes(int D) {
   while (2 * G < D) G *= 2;
   return G;
 }
+
+// ---------------------------------------------------------------- K1, K2
+
+// A lane's piece of a row: N consecutive elements as floats. With VEC it is
+// 16 bytes (`Vec<T>`), so the row must be a multiple of 16 bytes on a
+// 16-byte boundary; without, one element (any D, any alignment).
+template <typename T, bool VEC>
+struct Piece;
+
+template <typename T>
+struct Piece<T, true> {
+  static constexpr int N = Vec<T>::N;
+  static __device__ __forceinline__ void load(const T* p, float* v) {
+    Vec<T>::load(p, v);
+  }
+  static __device__ __forceinline__ void store(T* p, const float* v) {
+    Vec<T>::store(p, v);
+  }
+};
+
+template <typename T>
+struct Piece<T, false> {
+  static constexpr int N = 1;
+  static __device__ __forceinline__ void load(const T* p, float* v) {
+    v[0] = to_f32(*p);
+  }
+  static __device__ __forceinline__ void store(T* p, const float* v) {
+    *p = from_f32<T>(v[0]);
+  }
+};
+
+// The most elements a row may have: four pieces of one element a lane.
+#define MAX_ROW_D 128
+
+// Lanes G (a power of two, at most 32) that carry one row of D elements in
+// pieces of N, K pieces a lane: the least G with G * K * N >= D. 0 where
+// the row does not fit.
+static inline int row_lanes(int D, int N, int K) {
+  const int pieces = (D + N - 1) / N;
+  int G = 1;
+  while (G < 32 && G * K < pieces) G *= 2;
+  return G * K >= pieces ? G : 0;
+}
+
+// Pieces a lane carries in K1 and K2: one 16-byte piece, or four elements
+// without 16-byte pieces. (Two 16-byte pieces a lane, so that a warp takes
+// all its points in one trip, ran K1 slower on the card: 112 registers a
+// thread left fewer warps in flight.)
+__host__ __device__ constexpr int row_pieces(bool vec) { return vec ? 1 : 4; }
+
+// The C entry points' shape block: dtype, B, S, Q, H, D, L, P, then L
+// pairs (h, w). One int array, made once for each shape by the wrapper, so
+// that a launch converts few arguments.
+struct Dims {
+  int dtype, B, S, Q, H, D, L, P;
+  Levels lv;
+};
+
+// Reads and checks a shape block; false when the levels do not sum to S.
+static inline bool read_dims(const int* d, Dims& out) {
+  out.dtype = d[0];
+  out.B = d[1];
+  out.S = d[2];
+  out.Q = d[3];
+  out.H = d[4];
+  out.D = d[5];
+  out.L = d[6];
+  out.P = d[7];
+  if (out.L < 1 || out.L > MAX_LEVELS) return false;
+  return fill_levels(out.lv, d + 8, out.L, out.S);
+}
+
+// Level l's height, width and first row, read with constant indices so
+// that the table stays in the kernel's parameter space (an index known
+// only at run time would copy it to local memory).
+__device__ __forceinline__ void level_at(const Levels& lv, int l, int& hl,
+                                         int& wl, long long& first) {
+  hl = lv.h[0];
+  wl = lv.w[0];
+  first = lv.start[0];
+#pragma unroll
+  for (int j = 1; j < MAX_LEVELS; ++j) {
+    if (l == j) {
+      hl = lv.h[j];
+      wl = lv.w[j];
+      first = lv.start[j];
+    }
+  }
+}
+
+// Whether the rows of a [.., D] tensor at p take 16-byte pieces.
+template <typename T>
+static inline bool rows_vec16(const void* p, int D) {
+  return (D * (int)sizeof(T)) % 16 == 0 && ((uintptr_t)p & 15) == 0;
+}
+
+// Element offset of piece k of a lane at sub-lane sl, with G lanes a row.
+template <int N>
+__device__ __forceinline__ int piece_at(int sl, int k, int G) {
+  return (sl + k * G) * N;
+}
+
+// The largest L*P a warp's points may have: loc has 2*L*P floats, held
+// 32 to a register across the warp's lanes.
+#define MAX_LP 64
+
+// One (b, q, h)'s loc ([L*P, 2]) and attn ([L*P]) held across a warp's
+// lanes: lane l keeps elements l, l + 32, ... of each, loaded once with
+// coalesced loads. `get` hands point i's values to the lane that asks;
+// every lane of the warp must call it (it shuffles).
+struct WarpPoints {
+  float loc[(2 * MAX_LP) / 32];
+  float attn[MAX_LP / 32];
+  int n_loc, n_attn;  // registers in use
+
+  __device__ __forceinline__ void load(const float* __restrict__ locp,
+                                       const float* __restrict__ attnp,
+                                       int LP, int lane) {
+    n_loc = (2 * LP + 31) / 32;
+    n_attn = (LP + 31) / 32;
+#pragma unroll
+    for (int k = 0; k < (2 * MAX_LP) / 32; ++k) {
+      const int e = lane + 32 * k;
+      loc[k] = (k < n_loc && e < 2 * LP) ? locp[e] : 0.f;
+    }
+#pragma unroll
+    for (int k = 0; k < MAX_LP / 32; ++k) {
+      const int e = lane + 32 * k;
+      attn[k] = (k < n_attn && e < LP) ? attnp[e] : 0.f;
+    }
+  }
+
+  template <int R>
+  static __device__ __forceinline__ float pick(const float (&r)[R], int n,
+                                               int e) {
+    float v = 0.f;
+#pragma unroll
+    for (int k = 0; k < R; ++k) {
+      if (k < n) {  // n is the same in every lane
+        const float t = __shfl_sync(0xffffffffu, r[k], e & 31);
+        if ((e >> 5) == k) v = t;
+      }
+    }
+    return v;
+  }
+
+  __device__ __forceinline__ void get(int i, float& lx, float& ly,
+                                      float& a) const {
+    lx = pick(loc, n_loc, 2 * i);
+    ly = pick(loc, n_loc, 2 * i + 1);
+    a = pick(attn, n_attn, i);
+  }
+};
+
+// One point's four corners at its level: pixel coordinate, bounds test and
+// bilinear weights, as the plain version computes them. Corner c is
+// (c & 1, c >> 1): x0 + (c & 1), y0 + (c >> 1).
+struct Corners {
+  float tx, ty;
+  bool ok[4];
+  long long s[4];  // row of the corner within its level (0 outside)
+
+  __device__ __forceinline__ void at(float lx, float ly, int hl, int wl,
+                                     bool live) {
+    const float x = pixel(lx, wl), y = pixel(ly, hl);
+    const float x0 = floorf(x), y0 = floorf(y);
+    tx = x - x0;
+    ty = y - y0;
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const float fx = x0 + (float)(c & 1), fy = y0 + (float)(c >> 1);
+      // the float bounds test before the index: NaN or inf fall outside
+      ok[c] = live && inside(fx, wl) && inside(fy, hl);
+      s[c] = ok[c] ? (long long)fy * wl + (long long)fx : 0;
+    }
+  }
+  __device__ __forceinline__ float wx(int c) const {
+    return (c & 1) ? tx : 1.f - tx;
+  }
+  __device__ __forceinline__ float wy(int c) const {
+    return (c >> 1) ? ty : 1.f - ty;
+  }
+};

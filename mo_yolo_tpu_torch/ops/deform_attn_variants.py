@@ -58,7 +58,8 @@ import torch
 import torch.nn.functional as F
 
 from mo_yolo_tpu_torch.ops.deform_attn import (_DTYPE_CODE, Shapes, _check,
-                                               hat_weights)
+                                               _hw_array, hat_weights)
+from mo_yolo_tpu_torch.utils import cuda_build
 
 # what one block may take of an SM's shared memory on the card (227 KB)
 MAX_DYNAMIC_SMEM = 232448
@@ -362,21 +363,13 @@ def _c_launch(name: str, counter: Callable, value: torch.Tensor,
     """Launch `csrc/<name>.cu` on the current stream; raise on a CUDA
     error; add one to `counter.launches`. dims = (B, S, Q, H, D, L, P);
     `extra` are the kernel's int arguments after TQ (v45's compact_cy)."""
-    from mo_yolo_tpu_torch.utils import cuda_build
-
-    fn = getattr(cuda_build.load(name), name)
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 4 + \
-            [ctypes.c_int] * (9 + len(extra)) + \
-            [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    hw = (ctypes.c_int * (2 * len(shapes)))(
-        *[int(v) for hw in shapes for v in hw])
-    with torch.cuda.device(value.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(value.data_ptr(), loc.data_ptr(), attn.data_ptr(),
-                 out.data_ptr(), _DTYPE_CODE[value.dtype], *dims, TQ, *extra,
-                 hw, stream)
+    fn = cuda_build.entry(name, name, [ctypes.c_void_p] * 4 +
+                          [ctypes.c_int] * (9 + len(extra)) +
+                          [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p])
+    err = cuda_build.call(fn, value, value.data_ptr(), loc.data_ptr(),
+                          attn.data_ptr(), out.data_ptr(),
+                          _DTYPE_CODE[value.dtype], *dims, TQ, *extra,
+                          _hw_array(shapes))
     if err != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
     counter.launches += 1

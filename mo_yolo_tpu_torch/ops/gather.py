@@ -16,6 +16,8 @@ import ctypes
 
 import torch
 
+from mo_yolo_tpu_torch.utils import cuda_build
+
 
 def take_along_axis_torch(v: torch.Tensor, idx: torch.Tensor,
                           axis: int) -> torch.Tensor:
@@ -54,17 +56,12 @@ def take_along_axis(v: torch.Tensor, idx: torch.Tensor,
     if v.device.type != "cuda":
         raise ValueError(f"unsupported device {v.device}")
     _check(v, idx, axis)
-    from mo_yolo_tpu_torch.utils import cuda_build
-
-    fn = cuda_build.load("take_along_axis").take_along_axis
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + \
-            [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
+    fn = cuda_build.entry("take_along_axis", "take_along_axis",
+                          [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 +
+                          [ctypes.c_void_p])
     out = torch.empty_like(v)
-    with torch.cuda.device(v.device):
-        err = fn(v.data_ptr(), idx.data_ptr(), out.data_ptr(), v.shape[0],
-                 v.shape[1], axis, torch.cuda.current_stream().cuda_stream)
+    err = cuda_build.call(fn, v, v.data_ptr(), idx.data_ptr(),
+                          out.data_ptr(), v.shape[0], v.shape[1], axis)
     if err != 0:
         raise RuntimeError(f"take_along_axis launch failed: CUDA error {err}")
     take_along_axis.launches += 1
@@ -72,18 +69,14 @@ def take_along_axis(v: torch.Tensor, idx: torch.Tensor,
 
 
 def empty_launch(device: torch.device) -> None:
-    """Launch the kernel that does nothing on `device`'s current stream
-    (the study's measure of what a launch costs). Raises without a card."""
-    if torch.device(device).type != "cuda":
+    """Launch the kernel that does nothing on `device`'s current stream, by
+    the launch path every wrapper takes (the study's measure of what a
+    launch costs). Raises without a card."""
+    if device.type != "cuda":
         raise ValueError("an empty launch needs a CUDA device")
-    from mo_yolo_tpu_torch.utils import cuda_build
-
-    fn = cuda_build.load("take_along_axis").empty_launch
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    with torch.cuda.device(device):
-        err = fn(torch.cuda.current_stream().cuda_stream)
+    fn = cuda_build.entry("take_along_axis", "empty_launch",
+                          [ctypes.c_void_p])
+    err = cuda_build.call(fn, device)
     if err != 0:
         raise RuntimeError(f"empty launch failed: CUDA error {err}")
 

@@ -6,7 +6,7 @@
 1. The matmul rate `torch.matmul` reaches at the study's shapes (the JAX
    script computes these outside any kernel of its own, too).
 2. What one launch costs: a kernel that does nothing, launched as the
-   port launches its kernels (a Python wrapper, ctypes, the current
+   port launches its kernels (a Python wrapper, ctypes, the raw current
    stream). It is the host's cost per launch, the floor under every
    back-to-back timing of a kernel that runs for less.
 3. The gather. On the TPU the script asks whether Mosaic can gather beyond
@@ -59,12 +59,15 @@ def bench_empty_launch(device: torch.device, iters: int = 2000
                        ) -> Dict[str, object]:
     """The cost of one launch of an empty kernel, in microseconds: `us` as
     the host issues them one after another, `device_us` replayed from a
-    CUDA graph, and the host clock's share of two steps every wrapper
-    takes: entering `torch.cuda.device` and asking for the current stream.
-    On the CPU there is nothing to launch and all are null."""
+    CUDA graph, and the host clock's share of the steps a wrapper may
+    take to find its stream: entering `torch.cuda.device` and asking
+    `torch.cuda.current_stream()` (the wrappers' earlier launch path), and
+    the raw current stream the wrappers now take
+    (`torch._C._cuda_getCurrentRawStream`, `cuda_build.call`). On the CPU
+    there is nothing to launch and all are null."""
     rec = {"bench": "empty_launch", "us": None, "device_us": None,
            "device_context_us": None, "current_stream_us": None,
-           "device": device_record(device)}
+           "raw_stream_us": None, "device": device_record(device)}
     if device.type == "cuda":
         def enter_context():
             with torch.cuda.device(device):
@@ -83,7 +86,10 @@ def bench_empty_launch(device: torch.device, iters: int = 2000
                                        device) * 1e3,
                    device_context_us=host_us(enter_context),
                    current_stream_us=host_us(
-                       lambda: torch.cuda.current_stream().cuda_stream))
+                       lambda: torch.cuda.current_stream().cuda_stream),
+                   raw_stream_us=host_us(
+                       lambda: torch._C._cuda_getCurrentRawStream(
+                           torch._C._cuda_getDevice())))
     return rec
 
 

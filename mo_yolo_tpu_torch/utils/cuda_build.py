@@ -6,6 +6,10 @@ on first use into `build/torch_kernels/` at the repository root (listed in
 (`*.cuh`) beside it and the flags, so a changed source rebuilds and an
 unchanged one loads at once. Nothing is built at import time: the CPU tests
 import every module.
+
+`call` runs an entry point on the current stream of a tensor's device: the
+launch path every wrapper shares, kept short because a kernel of the main
+path runs for less time than the host takes to launch it.
 """
 
 from __future__ import annotations
@@ -16,7 +20,9 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Callable, Dict, Iterable
+
+import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "ops" / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / \
@@ -83,3 +89,31 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(build([name])[name]))
         _loaded[name] = lib
     return lib
+
+
+def call(fn: Callable[..., int], where, *args) -> int:
+    """`fn(*args, stream)` with the raw current stream of the CUDA device
+    `where` (a tensor on it, or a `torch.device`), as PyTorch's generated
+    code asks for it (`torch._C._cuda_getCurrentRawStream`), so that the
+    kernel runs in stream order with PyTorch's work and inside CUDA-graph
+    capture. `torch.cuda.device` is entered only when that device is not
+    the current one. Returns what `fn` returns."""
+    current = torch._C._cuda_getDevice()
+    if isinstance(where, torch.Tensor):
+        index = where.get_device()
+    else:
+        index = current if where.index is None else where.index
+    if index == current:
+        return fn(*args, torch._C._cuda_getCurrentRawStream(index))
+    with torch.cuda.device(index):
+        return fn(*args, torch._C._cuda_getCurrentRawStream(index))
+
+
+def entry(name: str, symbol: str, argtypes, restype=ctypes.c_int):
+    """The C function `symbol` of `ops/csrc/<name>.cu`, its argument types
+    set once (ctypes passes an unset pointer argument as a 32-bit int)."""
+    fn = getattr(load(name), symbol)
+    if fn.argtypes is None:
+        fn.argtypes = argtypes
+        fn.restype = restype
+    return fn

@@ -68,21 +68,91 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
 
 
 def test_kernel_source_has_its_c_entry_point():
-    """The wrapper's argument list and the C entry point agree in arity."""
+    """The wrapper's argument list and the C entry point agree in arity:
+    value, loc, attn, out, the shape block and the stream."""
+    from mo_yolo_tpu_torch.ops.deform_attn import _FWD_ARGS
     from mo_yolo_tpu_torch.utils.cuda_build import CSRC
     src = (CSRC / "ms_deform_attn_fwd.cu").read_text()
     sig = src[src.index('extern "C" int ms_deform_attn_fwd('):]
     sig = sig[:sig.index(")")]
-    assert sig.count(",") + 1 == 14
+    assert sig.count(",") + 1 == len(_FWD_ARGS) == 6
 
 
 def test_backward_kernel_source_has_its_c_entry_point():
-    """K2's wrapper passes as many arguments as its C entry point takes."""
+    """K2's wrapper passes as many arguments as its C entry points take:
+    the launch (value, loc, attn, grad, d_value, d_loc, d_attn, the
+    workspace, the shape block, the stream) and the workspace layout (the
+    shape block, the offsets)."""
+    from mo_yolo_tpu_torch.ops.deform_attn import _BWD_ARGS
     from mo_yolo_tpu_torch.utils.cuda_build import CSRC
     src = (CSRC / "ms_deform_attn_bwd.cu").read_text()
-    sig = src[src.index('extern "C" int ms_deform_attn_bwd('):]
-    sig = sig[:sig.index(")")]
-    assert sig.count(",") + 1 == 18
+    for entry, n_args in (('extern "C" int ms_deform_attn_bwd(',
+                           len(_BWD_ARGS)),
+                          ('extern "C" long long ms_deform_attn_bwd_workspace(',
+                           2)):
+        sig = src[src.index(entry):]
+        sig = sig[:sig.index(")")]
+        assert sig.count(",") + 1 == n_args, entry
+
+
+def test_backward_kernel_sums_without_float_atomics():
+    """K2 writes every d_value row once: its only atomics are the integer
+    row counts, and there is no cast pass and no zeroed f32 buffer."""
+    import re
+    from mo_yolo_tpu_torch.ops import deform_attn as da
+    from mo_yolo_tpu_torch.utils.cuda_build import CSRC
+    src = (CSRC / "ms_deform_attn_bwd.cu").read_text()
+    calls = re.findall(r"atomic\w+\(([^,]*),", src)
+    assert calls == ["counts + r", "cursor + r"]
+    assert "int* __restrict__ counts" in src and \
+        "int* __restrict__ cursor" in src
+    assert "cast" not in src.split("#include")[1]
+    import inspect
+    assert "torch.zeros" not in inspect.getsource(da._launch_bwd)
+
+
+def test_level_table_is_made_once_per_shape():
+    """The C entry points' level table: the same ctypes array for the same
+    level shapes, given as a tuple or a list; S is its sum."""
+    from mo_yolo_tpu_torch.ops.deform_attn import _hw_array, _level_rows
+    shapes = ((12, 16), (6, 8), (3, 4))
+    hw = _hw_array(shapes)
+    assert list(hw) == [12, 16, 6, 8, 3, 4]
+    assert _hw_array(((12, 16), (6, 8), (3, 4))) is hw
+    assert _hw_array([(12, 16), (6, 8), (3, 4)]) is hw
+    assert _level_rows(shapes) == 12 * 16 + 6 * 8 + 3 * 4
+
+
+def test_shape_block_is_checked_once_per_signature():
+    """K1 and K2's shape block (dtype code, B, S, Q, H, D, L, P, the level
+    pairs) is made once for each signature of shapes and dtypes; a
+    non-contiguous or misplaced operand of a known signature still
+    raises."""
+    from mo_yolo_tpu_torch.ops.deform_attn import _plan
+    value, shapes, loc, attn = _torch_inputs("q10")
+    plan = _plan(value, shapes, loc, attn)
+    assert list(plan[0]) == [0, 1, 252, 10, 2, 8, 3, 4,
+                             12, 16, 6, 8, 3, 4]
+    assert plan[1:] == (1, 252, 10, 2, 8, 3, 4)
+    assert _plan(value.clone(), shapes, loc.clone(), attn.clone()) is plan
+    assert _plan(value.to(torch.bfloat16), shapes, loc, attn)[0][0] == 1
+    with pytest.raises(ValueError):
+        _plan(value.transpose(1, 2).contiguous().transpose(1, 2), shapes,
+              loc, attn)
+    with pytest.raises(ValueError):
+        _plan(value, shapes, loc[..., :1].expand(loc.shape), attn)
+
+
+def test_kernels_reject_rows_and_points_they_do_not_carry():
+    """K1 and K2 carry D <= 128 and L*P <= 64 in a warp; past that the
+    wrapper raises before any launch."""
+    from mo_yolo_tpu_torch.ops.deform_attn import _check_kernel
+    value, _, loc, _ = _torch_inputs("q10")
+    _check_kernel(value, loc)
+    with pytest.raises(ValueError):
+        _check_kernel(torch.zeros(1, 4, 2, 129), loc)
+    with pytest.raises(ValueError):
+        _check_kernel(value, torch.zeros(1, 10, 2, 3, 22, 2))
 
 
 def test_backward_wrapper_on_cpu_is_the_plain_version():
@@ -188,6 +258,123 @@ def test_sampler_trains_through_both_kernels_on_card(card):
     for got, want in zip(grads["kernel"], grads["plain"]):
         torch.testing.assert_close(got, want, atol=BWD_F32_TOL,
                                    rtol=DVALUE_RTOL)
+
+
+def _clustered_inputs(device, Q=728, H=8, D=32, seed=5):
+    """Every point in [0.45, 0.55] at 640x640's level shapes: the corners
+    pile onto a few d_value rows, as training queries do."""
+    value, shapes, loc, attn = rand_sampler_inputs(
+        Q=Q, H=H, D=D, shapes=((80, 80), (40, 40), (20, 20)), seed=seed)
+    loc = np.random.default_rng(seed).uniform(0.45, 0.55, loc.shape)
+    return (torch.from_numpy(value).to(device), shapes,
+            torch.from_numpy(loc.astype(np.float32)).to(device),
+            torch.from_numpy(attn).to(device))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["clustered", "d40_bf16"])
+def test_backward_kernel_new_cases_on_card(card, case):
+    """K2 on corners that pile onto few rows (hundreds of corners a row,
+    rows that cross the reduce's chunks) and on D=40 bf16 rows (80 bytes:
+    the element-a-lane kernels), against the plain gradient: f32 d_loc and
+    d_attn 1e-5, d_value 1e-4 relative (its order comes from atomics);
+    bf16 1e-2."""
+    from mo_yolo_tpu_torch.ops.deform_attn import (
+        ms_deform_attn_backward, ms_deform_attn_backward_torch)
+    if case == "clustered":
+        value, shapes, loc, attn = _clustered_inputs(card)
+        dtypes = (torch.float32, torch.bfloat16)
+    else:
+        value, shapes, loc, attn = rand_sampler_inputs(Q=33, H=2, D=40,
+                                                       seed=40)
+        value, loc, attn = (torch.from_numpy(a).to(card)
+                            for a in (value, loc, attn))
+        dtypes = (torch.bfloat16,)
+    g = _grad_out(value, loc, seed=3)
+    for dt in dtypes:
+        v, gg = value.to(dt), g.to(dt)
+        got = ms_deform_attn_backward(v, shapes, loc, attn, gg)
+        want = ms_deform_attn_backward_torch(v.float(), shapes, loc, attn,
+                                             gg.float())
+        assert got[0].dtype == dt
+        tols = (BWD_F32_TOL, DVALUE_RTOL) if dt == torch.float32 else \
+            (BF16_ATOL, BF16_RTOL)
+        for name, a, w in zip(("d_value", "d_loc", "d_attn"), got, want):
+            tol = tols[1] if name == "d_value" else tols[0]
+            scale = max(1.0, float(w.abs().max()))
+            err = float((a.float() - w).abs().max())
+            assert err <= tol * scale, (dt, name, err, scale)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["q70", "clustered"])
+def test_backward_kernel_rows_equal_the_plain_rows_on_card(card, case):
+    """K2's intermediates: the key of every corner slot and the row counts
+    equal the plain rows form's exactly; start is their prefix sum and ids
+    lists every in-bounds slot once, by row."""
+    from mo_yolo_tpu_torch.ops.deform_attn import (
+        _launch_bwd, ms_deform_attn_backward_rows_torch)
+    if case == "clustered":
+        value, shapes, loc, attn = _clustered_inputs(card, Q=96, H=2, D=16)
+    else:
+        value, shapes, loc, attn = _torch_inputs(case, card)
+    g = _grad_out(value, loc, seed=4)
+    *_, rows = _launch_bwd(value, shapes, loc, attn, g, rows=True)
+    *_, want = ms_deform_attn_backward_rows_torch(value, shapes, loc, attn, g)
+    assert torch.equal(rows["key"], want["key"])
+    assert torch.equal(rows["counts"], want["counts"])
+    assert torch.equal(rows["start"], want["start"])
+    ids = rows["ids"].long()
+    assert torch.equal(ids.sort().values, want["ids"].sort().values)
+    assert torch.equal(rows["key"].reshape(-1)[ids],
+                       want["key"].reshape(-1)[want["ids"]])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["unaligned_view", "d8", "d6"])
+def test_kernel_other_rows_on_card(card, case):
+    """K1 on rows the 16-byte pieces do not take (a value view one element
+    off a 16-byte boundary, D=6) and on D=8, in f32 and bf16, against the
+    plain version: f32 1e-5; bf16 1e-2."""
+    from mo_yolo_tpu_torch.ops.deform_attn import (ms_deform_attn,
+                                                   ms_deform_attn_torch)
+    D = {"unaligned_view": 32, "d8": 8, "d6": 6}[case]
+    value, shapes, loc, attn = rand_sampler_inputs(Q=50, H=3, D=D, seed=D)
+    loc, attn = torch.from_numpy(loc).to(card), torch.from_numpy(attn).to(card)
+    for dt in (torch.float32, torch.bfloat16):
+        v = torch.from_numpy(value).to(card, dt)
+        if case == "unaligned_view":
+            flat = torch.empty(v.numel() + 1, dtype=dt, device=card)
+            flat[1:] = v.reshape(-1)
+            v = flat[1:].view(v.shape)
+            assert v.is_contiguous() and v.data_ptr() % 16 != 0
+        got = ms_deform_attn(v, shapes, loc, attn)
+        want = ms_deform_attn_torch(v.float(), shapes, loc, attn)
+        if dt == torch.float32:
+            torch.testing.assert_close(got, want, atol=F32_ATOL, rtol=0)
+        else:
+            torch.testing.assert_close(got.float(), want, atol=BF16_ATOL,
+                                       rtol=BF16_RTOL)
+
+
+@pytest.mark.gpu
+def test_no_grad_sampler_launches_k1_once_on_card(card):
+    """Under `no_grad`, and with no input requiring grad, the sampler
+    launches K1 once and builds no autograd node; with grad it still goes
+    through the Function."""
+    from mo_yolo_tpu_torch.ops.deform_attn import (ms_deform_attn,
+                                                   ms_deform_attn_torch)
+    value, shapes, loc, attn = _torch_inputs("q70", card)
+    want = ms_deform_attn_torch(value, shapes, loc, attn)
+    needs = value.clone().requires_grad_(True)
+    for v, ctx in ((value, torch.enable_grad), (needs, torch.no_grad)):
+        before = ms_deform_attn.launches
+        with ctx():
+            got = ms_deform_attn(v, shapes, loc, attn)
+        assert ms_deform_attn.launches == before + 1
+        assert got.grad_fn is None
+        torch.testing.assert_close(got, want, atol=F32_ATOL, rtol=0)
+    assert ms_deform_attn(needs, shapes, loc, attn).grad_fn is not None
 
 
 @pytest.mark.gpu
