@@ -25,8 +25,9 @@ Phases, each printed as one JSON line:
    `fwd_v3`, `fwd_v45` as v4 and v5, `fwd_nocy`, `fwd_v6`, `fwd_v7`,
    `fwd_v8`) against the plain sampler and their own plain versions at the
    study's inputs and at edge cases, with 64 and 128 queries a block (and
-   256 for v7 and v8), and S1 (`take_along_axis`) against `torch.gather`,
-   exactly, also in its scalar forms; times each;
+   256 for v7 and v8), v1 and v8 also on clustered points (every point in
+   [0.45, 0.55]) at 64, 128 and 256, and S1 (`take_along_axis`) against
+   `torch.gather`, exactly, also in its scalar forms; times each;
 7. study: the sampler study through its entry points
    (`mo_yolo_tpu_torch.scripts.kernel_variants_bench.main(["--parity"])`,
    `micro_peak_bench`, `kernel_study_shapes`, `hbm_bw_bench`), one JSON
@@ -722,18 +723,30 @@ def phase_kernel_variants(device="cuda"):
             ("d40", dict(levels=small, q=33, h=2, d=40))):
         cases.append((case, lambda dt, kw=kw: sampler_inputs(
             dtype=dt, device=device, **kw)))
+    # v1 and v8 where the points of a level land on a few rows (at the
+    # small levels' 6x8 and at 1536x800's 25x48 every point of a level
+    # touches the same two or five): v8's row groups have many members
+    clustered = [(f"clustered_{name}", lambda dt, levels=levels:
+                  sampler_inputs(levels, dtype=dt, device=device, seed=7,
+                                 loc_range=CLUSTERED))
+                 for name, levels in (("1536x800", LEVELS["1536x800"]),
+                                      ("small", small))]
     results = {}
     maxima = {label: {} for label in variants}
 
     def worst(label, key, err):
         maxima[label][key] = max(maxima[label].get(key, 0.0), err)
 
-    for case, make in cases:
+    # (case, inputs, variants, queries a block: None for each variant's)
+    runs = [(c, m, tuple(variants), None) for c, m in cases] + \
+        [(c, m, ("v1", "v8"), (64, 128, 256)) for c, m in clustered]
+    for case, make, labels, case_tqs in runs:
         for dt in (torch.float32, torch.bfloat16):
             value, levels, loc, attn = make(dt)
             want = ms_deform_attn_torch(value.float(), levels, loc, attn)
-            for label, (kname, fn, plain, tqs, rule) in variants.items():
-                for tq in tqs:
+            for label in labels:
+                kname, fn, plain, tqs, rule = variants[label]
+                for tq in case_tqs or tqs:
                     got = fn(value, levels, loc, attn, TQ=tq)
                     torch.cuda.synchronize()
                     check(got.dtype == dt and got.shape == want.shape,
@@ -1552,6 +1565,10 @@ def main() -> int:
         **{k: greedy[k] for k in keys}, "library_ms": None}]
     # the study's kernels: launches are the study phase's, the path that
     # runs them; the streaming and training paths launch none
+    for name in ("take_along_axis",) + VARIANT_KERNELS:
+        check(launches[name] == 0 and
+              all(rec["launches"][name] == 0 for rec in slices),
+              f"{name}: launched on the streaming or training path")
     for name, replaces in (
             ("take_along_axis", "scripts/micro_peak_bench.py:88"),
             ("ms_deform_attn_fwd_v1", "scripts/kernel_variants_bench.py:40"),

@@ -16,8 +16,8 @@
 // in flight (eight in bf16) where the main-path kernel has one; the
 // sub-groups' partial sums meet in a shuffle reduction and sub-group 0
 // writes the row with 16-byte stores. loc and attn of the tile are staged
-// into shared memory as in v1; the grid is v1's (batch, query tile), heads
-// inside, as the TPU kernel's.
+// into shared memory; the grid is (batch, query tile), heads inside, as the
+// TPU kernel's.
 //
 // Plain C entry point, bound with ctypes; it launches on the caller's
 // stream and returns cudaGetLastError() after the launch.

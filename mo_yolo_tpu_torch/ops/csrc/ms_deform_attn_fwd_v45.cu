@@ -22,12 +22,12 @@
 // builds them at full width on the TPU; here every lane computes its own
 // (`compact_cy` = 0). Both give the same values.
 //
-// What bounds it on the card: the grid, then bytes. The skeleton is v1's
-// (`walk_pairs` in sampler_common.cuh): one block of 1024 threads per
-// (batch, query tile) with all heads, loc and attn staged in shared memory,
-// warps over (q, h) pairs. At D=32 a row is 16 lanes of two elements, so a
-// warp carries two pairs at once instead of leaving half its lanes idle.
-// Ten blocks at Q=600, TQ=64 leave most of the 132 SMs idle, as in v1.
+// What bounds it on the card: the grid, then bytes. The skeleton is the TPU
+// kernel's grid (`walk_pairs` in sampler_common.cuh): one block of 1024
+// threads per (batch, query tile) with all heads, loc and attn staged in
+// shared memory, warps over (q, h) pairs. At D=32 a row is 16 lanes of two
+// elements, so a warp carries two pairs at once instead of leaving half its
+// lanes idle. Ten blocks at Q=600, TQ=64 leave most of the 132 SMs idle.
 //
 // Plain C entry point, bound with ctypes; it launches on the caller's
 // stream and returns cudaGetLastError() after the launch.

@@ -3,10 +3,10 @@
 // level table, the conversions between the value dtype and f32 and the
 // rounding of an f32 intermediate to the value dtype, the coordinate
 // rounding, the staging of a query tile's loc and attn into shared memory,
-// one point's hat-weighted sample (v1 and v2), 16-byte row pieces (v3, v7,
-// K1, K2, nocy), two-element row pieces with the value dtype's packed
-// product (v45 and v6), and the sub-group row plan and a warp's points
-// handed out by shuffles (K1, K2, nocy).
+// one point's hat-weighted sample (v2), 16-byte row pieces (v3, v7, K1, K2,
+// nocy, v1, v8), two-element row pieces with the value dtype's packed
+// product (v45 and v6), and the sub-group row plan, a warp's points handed
+// out by shuffles and a point's corner rows (K1, K2, nocy, v1, v8).
 
 #pragma once
 
@@ -235,7 +235,7 @@ struct Pair<__half> {
   }
 };
 
-// v1's skeleton with two elements a lane, shared by the v45 and v6
+// The TPU kernels' grid with two elements a lane, shared by the v45 and v6
 // kernels. Block (tile, b) owns queries [tile*TQ, tile*TQ + TQ) of batch b
 // with all heads; the tile's loc and attn ([nq, H, L, P, 2] and
 // [nq, H, L, P] f32) are staged into shared memory with coalesced loads.
@@ -479,3 +479,26 @@ struct Corners {
     return (c >> 1) ? ty : 1.f - ty;
   }
 };
+
+// A point's four corner rows as a sub-group carries them: piece k of
+// sub-lane sl of each corner c (`Corners`), zeros where the corner is
+// outside its level or the piece past D. `vl` is the level's first row for
+// this head, `row` the elements between rows of S.
+template <typename T, bool VEC, int K>
+__device__ __forceinline__ void load_corners(
+    const Corners& cn, const T* __restrict__ vl, long long row, int sl,
+    int G, int D, float (&v)[4][K][Piece<T, VEC>::N]) {
+  constexpr int N = Piece<T, VEC>::N;
+#pragma unroll
+  for (int c = 0; c < 4; ++c)
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const int e = piece_at<N>(sl, k, G);
+      if (cn.ok[c] && e < D) {
+        Piece<T, VEC>::load(vl + cn.s[c] * row + e, v[c][k]);
+      } else {
+#pragma unroll
+        for (int n = 0; n < N; ++n) v[c][k][n] = 0.f;
+      }
+    }
+}

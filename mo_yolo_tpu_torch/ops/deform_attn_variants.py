@@ -7,15 +7,19 @@ ablation, each a plain PyTorch version and the wrapper of its CUDA kernel
 Each computes the function of `ops.deform_attn.ms_deform_attn` (nocy on
 purpose not), with its shapes: value [B,S,H,D], loc [B,Q,H,L,P,2], attn
 [B,Q,H,L,P], output [B,Q,H·D] in the value dtype; loc and attn are held in
-f32. `TQ` is the number of queries one block owns; a last partial tile is
-padded (plain versions) or masked (kernels).
+f32. `TQ` is the number of queries one block of the TPU kernel owns; a
+last partial tile is padded (plain versions) or masked (the kernels that
+tile by it; v1, v8 and nocy run one warp per (batch, query, head) and do
+not use it).
 
 What each studies, and what its kernel does on the card:
 
 - v1 (`csrc/ms_deform_attn_fwd_v1.cu`): hat-function weights
-  relu(1 − |x − c|), the attention weight on the per-point sum, one block
-  per (batch, query tile) with all heads, loc and attn staged in shared
-  memory. It reads the operands as they are: no layout preparation.
+  relu(1 − |x − c|) and the attention weight on each point's summed
+  sample, f32 inside. Its kernel is the main-path kernel's warp on its
+  grid: one warp per (b, q, h), a point's corner rows read by a sub-group
+  of lanes with 16-byte loads, loc and attn handed out by shuffles. It
+  reads the operands as they are: no layout preparation.
 - v2 (`csrc/ms_deform_attn_fwd_v2.cu`): v1's arithmetic with heads on the
   grid and head-major operands. Its layout preparation makes value
   [B,H,S,D] and loc/attn [B,H,Q,...] and transposes the [B,H,Q,D] result
@@ -24,9 +28,10 @@ What each studies, and what its kernel does on the card:
   over the L·P·4 taps, the attention weight folded into the x weight, rows
   read by sub-groups of a warp with 16-byte loads. No layout preparation.
 - v4/v5 (`csrc/ms_deform_attn_fwd_v45.cu`): intermediates rounded to the
-  value dtype, u = t·cy a packed product in it; v1's grid, two elements a
-  lane. v4 hands a tap's y weights from one lane to the row's others, v5
-  computes them in every lane.
+  value dtype, u = t·cy a packed product in it; one block per (batch,
+  query tile) with all heads, two elements a lane. v4 hands a tap's y
+  weights from one lane to the row's others, v5 computes them in every
+  lane.
 - nocy (`csrc/ms_deform_attn_fwd_nocy.cu`): no y weight, the sum over a
   level's whole column; wrong on purpose (the TPU's ablation). Its kernel
   sums each column once into an f32 workspace, then samples those sums
@@ -37,7 +42,10 @@ What each studies, and what its kernel does on the card:
   on v2's grid, with v2's layout preparation.
 - v8 (`csrc/ms_deform_attn_fwd_v8.cu`): hat weights with attn in the x
   weight, intermediates rounded to the value dtype, the point sum per y row
-  before the y-sum; v2's kernel, grid and layout preparation.
+  before the y-sum. Its kernel runs v1's grid and sub-groups on the native
+  layout: the sub-groups write each point's rounded row terms to shared
+  memory, the candidates' rows are matched once per (query, level), and
+  each lane sums its elements row by row. No layout preparation.
 
 The plain versions follow the JAX kernels' arithmetic (the one-hot or hat
 matrix products, with their casts to the value dtype at the same places),
@@ -60,12 +68,13 @@ import torch
 import torch.nn.functional as F
 
 from mo_yolo_tpu_torch.ops.deform_attn import (_DTYPE_CODE, MAX_LP, Shapes,
-                                               _check, _hw_array, hat_weights)
+                                               _check, _check_kernel,
+                                               _hw_array, hat_weights)
 from mo_yolo_tpu_torch.utils import cuda_build
 
 # what one block may take of an SM's shared memory on the card (227 KB)
 MAX_DYNAMIC_SMEM = 232448
-# v8's kernel holds a query's 2P candidate rows in registers
+# v8's kernel matches a level's 2P candidate rows in the lanes of a warp
 V8_MAX_POINTS = 8
 
 
@@ -75,8 +84,7 @@ def point_rows(loc: torch.Tensor, attn: torch.Tensor, TQ: int):
     """The counterpart of `_prep`'s loc/attn half: f32, Q padded with zeros
     to a multiple of TQ, rows r = q*P + p, head-major.
     Returns (loc [B,H,R,L,2], attn [B,H,R,L], Q, Qp)."""
-    if TQ < 1:
-        raise ValueError(f"TQ must be positive, got {TQ}")
+    _check_tq(TQ)
     loc = loc.float()
     attn = attn.float()
     B, Q, H, L, P = attn.shape
@@ -344,13 +352,17 @@ def fwd_v8_torch(value: torch.Tensor, shapes: Shapes, loc: torch.Tensor,
     return _finish(acc, Q, cdtype)
 
 
+def _check_tq(TQ: int) -> None:
+    if TQ < 1:
+        raise ValueError(f"TQ must be positive, got {TQ}")
+
+
 # ------------------------------------------------------------------ kernels
 
 def _check_tile(loc: torch.Tensor, TQ: int, heads_in_block: bool) -> None:
     """A tile's loc and attn must fit the block's shared memory."""
     H, L, P = loc.shape[2], loc.shape[3], loc.shape[4]
-    if TQ < 1:
-        raise ValueError(f"TQ must be positive, got {TQ}")
+    _check_tq(TQ)
     smem = TQ * (H if heads_in_block else 1) * L * P * 3 * 4
     if smem > MAX_DYNAMIC_SMEM:
         raise ValueError(f"TQ={TQ} needs {smem} bytes of shared memory for "
@@ -416,14 +428,21 @@ def _check_rows(name: str, value: torch.Tensor, rows: str) -> None:
 
 def _native_layout(name: str, counter: Callable, value, shapes, loc, attn,
                    TQ: int, rows: str = "", extra: Tuple[int, ...] = (),
-                   ws_floats: int = 0):
-    """A variant that reads the operands as they are, all heads in a block.
-    Returns (launch, finish): `launch()` runs only the kernel, `finish(out)`
-    gives the [B,Q,H·D] result. `rows`: the kernel's row rule
-    (`_check_rows`); `ws_floats`: an f32 workspace of that many elements,
-    allocated for each launch."""
+                   ws_floats: int = 0, tiled: bool = True):
+    """A variant that reads the operands as they are. Returns (launch,
+    finish): `launch()` runs only the kernel, `finish(out)` gives the
+    [B,Q,H·D] result. `rows`: the kernel's row rule (`_check_rows`);
+    `ws_floats`: an f32 workspace of that many elements, allocated for each
+    launch; `tiled`: the kernel stages a tile of TQ queries with all heads
+    in shared memory (`_check_tile`); otherwise it runs one warp per
+    (b, q, h), carries the row and the points in a warp as the main-path
+    kernel does (D <= 128, L*P <= 64) and only checks TQ."""
     loc, attn, dims = _operands(value, shapes, loc, attn)
-    _check_tile(loc, TQ, heads_in_block=True)
+    if tiled:
+        _check_tile(loc, TQ, heads_in_block=True)
+    else:
+        _check_tq(TQ)
+        _check_kernel(value, loc)
     _check_rows(name, value, rows)
     B, _, Q, H, D = dims[:5]
 
@@ -461,9 +480,10 @@ def _head_major(name: str, counter: Callable, value, shapes, loc, attn,
 
 
 def prepare_v1(value, shapes, loc, attn, TQ=64):
-    """v1 needs no layout preparation (`_native_layout`)."""
+    """v1 needs no layout preparation and tiles nothing
+    (`_native_layout`)."""
     return _native_layout("ms_deform_attn_fwd_v1", fwd_v1, value, shapes, loc,
-                          attn, TQ)
+                          attn, TQ, tiled=False)
 
 
 def prepare_v2(value, shapes, loc, attn, TQ=64):
@@ -514,13 +534,14 @@ def prepare_v7(value, shapes, loc, attn, TQ=64):
 
 
 def prepare_v8(value, shapes, loc, attn, TQ=128):
-    """v8's layout preparation is v2's (`_head_major`); the kernel holds a
-    query's 2P candidate rows in registers, so P is at most 8."""
+    """v8 needs no layout preparation and tiles nothing (`_native_layout`);
+    the kernel matches a level's 2P candidate rows in the lanes of a warp,
+    so P is at most 8."""
     if loc.shape[4] > V8_MAX_POINTS:
         raise ValueError(f"ms_deform_attn_fwd_v8 takes at most "
                          f"{V8_MAX_POINTS} points, got {loc.shape[4]}")
-    return _head_major("ms_deform_attn_fwd_v8", fwd_v8, value, shapes, loc,
-                       attn, TQ)
+    return _native_layout("ms_deform_attn_fwd_v8", fwd_v8, value, shapes, loc,
+                          attn, TQ, tiled=False)
 
 
 def _run(prepare, plain, value, shapes, loc, attn, TQ, **kw):
@@ -594,10 +615,9 @@ def fwd_v7(value: torch.Tensor, shapes: Shapes, loc: torch.Tensor,
 
 def fwd_v8(value: torch.Tensor, shapes: Shapes, loc: torch.Tensor,
            attn: torch.Tensor, TQ: int = 128) -> torch.Tensor:
-    """Variant v8, its head-major transposes included. CPU tensor:
-    `fwd_v8_torch`. CUDA tensor: the kernel `csrc/ms_deform_attn_fwd_v8.cu`,
-    or an exception (more than 8 points raises); never the plain version.
-    `fwd_v8.launches` counts launches."""
+    """Variant v8. CPU tensor: `fwd_v8_torch`. CUDA tensor: the kernel
+    `csrc/ms_deform_attn_fwd_v8.cu`, or an exception (more than 8 points
+    raises); never the plain version. `fwd_v8.launches` counts launches."""
     return _run(prepare_v8, fwd_v8_torch, value, shapes, loc, attn, TQ)
 
 

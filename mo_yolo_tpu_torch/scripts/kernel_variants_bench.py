@@ -9,23 +9,25 @@ H=8, D=32, L=3, P=4, bf16 value), and with `--parity` first holds every
 variant to the plain gather sampler in f32. Variants:
 
   v0      the main-path kernel (`ops.deform_attn.ms_deform_attn`)
-  v1      hat weights, attn on the per-point sum, a block per (batch,
-          query tile) with all heads, loc/attn in shared memory
+  v1      hat weights, attn on the per-point sum; on the card the
+          main-path kernel's grid and warp (a warp per (batch, query,
+          head), sub-groups with 16-byte loads)
   v2      v1 with heads on the grid and head-major operands (the
           transposes are part of the variant and of its time)
   v3      the levels fused into one pass, rows read by sub-groups of a warp
           with 16-byte loads
   v4, v5  intermediates rounded to the value dtype, u = t*cy a packed
-          product in it, on v1's grid; v4 hands a tap's y weights from one
-          lane to the row's others, v5 computes them in every lane
+          product in it, a block per (batch, query tile) with all heads;
+          v4 hands a tap's y weights from one lane to the row's others, v5
+          computes them in every lane
   v6      only the x weights rounded, the point sum per level, v4's grid
   nocy    no y weight (wrong on purpose: the sum over a level's whole
           column; left out of --parity)
   v7      v3's arithmetic and warp on v2's grid (head-major, transposes
           timed with it)
-  v8      v2's kernel and grid, hat weights with attn in the x weight,
-          intermediates in the value dtype, the point sum per y row before
-          the y-sum
+  v8      hat weights with attn in the x weight, intermediates in the
+          value dtype, the point sum per y row before the y-sum; on the
+          card v1's grid and warp, the rows matched once per (query, level)
   *t128   the same with 128 queries a block instead of 64
   *t256   the same with 256 (v7, v8)
   vx      the one-hot-matmul algorithm in plain tensor code, f32 product

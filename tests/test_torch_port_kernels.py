@@ -278,11 +278,12 @@ def test_sampler_trains_through_both_kernels_on_card(card):
                                    rtol=DVALUE_RTOL)
 
 
-def _clustered_inputs(device, Q=728, H=8, D=32, seed=5):
-    """Every point in [0.45, 0.55] at 640x640's level shapes: the corners
-    pile onto a few d_value rows, as training queries do."""
+def _clustered_inputs(device, Q=728, H=8, D=32, seed=5,
+                      shapes=((80, 80), (40, 40), (20, 20))):
+    """Every point in [0.45, 0.55], by default at 640x640's level shapes:
+    the corners pile onto a few d_value rows, as training queries do."""
     value, shapes, loc, attn = rand_sampler_inputs(
-        Q=Q, H=H, D=D, shapes=((80, 80), (40, 40), (20, 20)), seed=seed)
+        Q=Q, H=H, D=D, shapes=shapes, seed=seed)
     loc = np.random.default_rng(seed).uniform(0.45, 0.55, loc.shape)
     return (torch.from_numpy(value).to(device), shapes,
             torch.from_numpy(loc.astype(np.float32)).to(device),
@@ -570,7 +571,14 @@ def test_variant_wrappers_raise_instead_of_falling_back(card, monkeypatch):
         with pytest.raises(TypeError):
             fn(value.double(), shapes, loc, attn)
         with pytest.raises(ValueError):
-            fn(value, shapes, loc, attn, TQ=10 ** 6)
+            fn(value, shapes, loc, attn, TQ=0)
+        if fn in (dv.fwd_v1, dv.fwd_v8):
+            # one warp per (b, q, h): no tile to stage, TQ is only checked
+            assert torch.equal(fn(value, shapes, loc, attn, TQ=10 ** 6),
+                               fn(value, shapes, loc, attn, TQ=64))
+        else:
+            with pytest.raises(ValueError):
+                fn(value, shapes, loc, attn, TQ=10 ** 6)
     # a row that is no multiple of 16 bytes: v3 and v7 raise, v1 takes it
     odd = torch.randn(1, value.shape[1], 2, 6, device=card)
     for fn in (dv.fwd_v3, dv.fwd_v7):
@@ -583,6 +591,73 @@ def test_variant_wrappers_raise_instead_of_falling_back(card, monkeypatch):
         with pytest.raises(ValueError, match="even D"):
             fn(odd, shapes, loc, attn)
     assert dv.fwd_v8(odd, shapes, loc, attn).shape == (1, 10, 14)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tq", [64, 128, 256])
+@pytest.mark.parametrize("levels", ["1536x800", "small"])
+@pytest.mark.parametrize("variant", ["v1", "v8"])
+def test_v1_and_v8_kernels_on_clustered_points_on_card(card, monkeypatch,
+                                                       variant, levels, tq):
+    """Every point in [0.45, 0.55] at the study's 1536x800 levels and at
+    the small ones (Q=600, H=8, D=32): at 6x8 every point of a level
+    touches the same two rows, so v8's row groups have up to 2P members.
+    f32 within 1e-5 of the plain sampler and of the variant's own plain
+    version; bf16: v1 within the 1e-2 rule of both, v8 within one bf16 ulp
+    at the output's scale of its own plain version on the same bf16
+    operands. One launch a call."""
+    import mo_yolo_tpu_torch.ops.deform_attn_variants as dv
+    from mo_yolo_tpu_torch.ops.deform_attn import ms_deform_attn_torch
+    from mo_yolo_tpu_torch.scripts.kernel_variants_bench import level_shapes
+    shapes = level_shapes(800, 1536) if levels == "1536x800" else \
+        ((12, 16), (6, 8), (3, 4))
+    value, shapes, loc, attn = _clustered_inputs(card, Q=600, seed=7,
+                                                 shapes=shapes)
+    vb = value.to(torch.bfloat16)
+    plain = getattr(dv, f"fwd_{variant}_torch")
+    want = ms_deform_attn_torch(value, shapes, loc, attn)
+    want_b = ms_deform_attn_torch(vb.float(), shapes, loc, attn)
+    own = plain(value, shapes, loc, attn, TQ=tq)
+    own_b = plain(vb if variant == "v8" else vb.float(), shapes, loc, attn,
+                  TQ=tq).float()
+    _no_plain_version(monkeypatch)
+    fn = getattr(dv, f"fwd_{variant}")
+    before = fn.launches
+    got = fn(value, shapes, loc, attn, TQ=tq)
+    got_b = fn(vb, shapes, loc, attn, TQ=tq)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 2
+    torch.testing.assert_close(got, want, atol=F32_ATOL, rtol=0)
+    torch.testing.assert_close(got, own, atol=F32_ATOL, rtol=0)
+    assert got_b.dtype == torch.bfloat16
+    if variant == "v1":
+        for ref in (want_b, own_b):
+            torch.testing.assert_close(got_b.float(), ref, atol=BF16_ATOL,
+                                       rtol=BF16_RTOL)
+    else:
+        torch.testing.assert_close(
+            got_b.float(), own_b, rtol=0,
+            atol=2.0 ** -7 * max(1.0, float(own_b.abs().max())))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("variant", ["v1", "v8"])
+def test_v1_and_v8_kernels_take_the_main_path_kernels_rows(card, variant):
+    """v1 and v8 carry a row and a warp's points as the main-path kernel
+    does: D above 128 raises before any launch, and so does L*P above 64
+    (v8 takes at most 8 points, so at most 64 at 8 levels)."""
+    import mo_yolo_tpu_torch.ops.deform_attn_variants as dv
+    fn = getattr(dv, f"fwd_{variant}")
+    value, shapes, loc, attn = _torch_inputs("q10", card)
+    before = fn.launches
+    with pytest.raises(ValueError, match="D <= 128"):
+        fn(torch.zeros(1, value.shape[1], 2, 136, device=card), shapes, loc,
+           attn)
+    wide = torch.rand(1, 10, 2, 3, 22, 2, device=card)
+    with pytest.raises(ValueError, match="L\\*P <= 64" if variant == "v1"
+                       else "at most 8 points"):
+        fn(value, shapes, wide, wide[..., 0].contiguous())
+    assert fn.launches == before
 
 
 @pytest.mark.gpu

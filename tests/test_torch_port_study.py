@@ -130,6 +130,29 @@ def test_variant_plain_versions_match_pallas_interpret_in_bf16(jax_variants,
         assert diff.mean() <= 0.1 * np.abs(want - ref).mean()
 
 
+@pytest.mark.parametrize("levels", [((12, 16), (6, 8), (3, 4)),
+                                    ((100, 192), (50, 96), (25, 48))],
+                         ids=["small", "1536x800"])
+def test_v8_plain_version_on_clustered_points_matches_pallas_interpret(
+        jax_variants, levels):
+    """Every point in [0.45, 0.55] (at the small levels' 6x8 every point of
+    a level touches the same two rows, so a row sums the u of up to 4
+    points before its rounding): in bf16 the plain version of v8 and the
+    interpreted TPU kernel agree to one bf16 ulp at the output's scale."""
+    value, shapes, loc, attn = rand_sampler_inputs(Q=16, shapes=levels,
+                                                   seed=13)
+    loc = np.random.default_rng(13).uniform(0.45, 0.55, loc.shape).astype(
+        np.float32)
+    vb = jnp.asarray(value).astype(jnp.bfloat16)
+    want = _interpret(jax_variants, "v8", vb, shapes, loc, attn, 16)
+    vt = torch.from_numpy(np.array(vb.astype(jnp.float32)))
+    plain = _port("v8")(vt.to(torch.bfloat16), shapes, torch.from_numpy(loc),
+                        torch.from_numpy(attn), TQ=16)
+    assert plain.dtype == torch.bfloat16 and plain.shape == (1, 16, 16)
+    diff = np.abs(plain.float().numpy() - want)
+    assert diff.max() <= BF16_ULP * max(1.0, float(np.abs(want).max()))
+
+
 @pytest.mark.parametrize("case", ["q10", "all_out_of_bounds", "batch2"])
 def test_variant_plain_versions_on_edge_cases(case):
     """A short last tile, nothing in bounds (exactly zero) and a batch of
