@@ -8,7 +8,9 @@ Phases, each printed as one JSON line:
 1. card: name and power limit (`nvidia-smi`); exits non-zero without a card;
 2. build: compiles every kernel of the paths from
    `mo_yolo_tpu_torch/ops/csrc` with nvcc (one process per source, all
-   started together);
+   started together) and reports each instantiation's registers and spills
+   from `ptxas -v`, holding S5's kernels under K1's 112-register warning
+   with at most 16 bytes of spill;
 3. kernel: holds K1 (the sampler) against its plain PyTorch version at the
    streaming path's shapes, at a clustered case (728 queries, every point
    in [0.45, 0.55]) and at edge cases, and times both with CUDA events;
@@ -25,9 +27,11 @@ Phases, each printed as one JSON line:
    `fwd_v3`, `fwd_v45` as v4 and v5, `fwd_nocy`, `fwd_v6`, `fwd_v7`,
    `fwd_v8`) against the plain sampler and their own plain versions at the
    study's inputs and at edge cases, with 64 and 128 queries a block (and
-   256 for v7 and v8), v1 and v8 also on clustered points (every point in
-   [0.45, 0.55]) at 64, 128 and 256, and S1 (`take_along_axis`) against
-   `torch.gather`, exactly, also in its scalar forms; times each;
+   256 for v7 and v8), the kernels on the main-path kernel's grid (v1, v4,
+   v5, v6, v8) also on clustered points (every point in [0.45, 0.55]) at
+   64, 128 and 256, v4 equal to v5 bit for bit in every case, and S1
+   (`take_along_axis`) against `torch.gather`, exactly, also in its scalar
+   forms; times each;
 7. study: the sampler study through its entry points
    (`mo_yolo_tpu_torch.scripts.kernel_variants_bench.main(["--parity"])`,
    `micro_peak_bench`, `kernel_study_shapes`, `hbm_bw_bench`), one JSON
@@ -61,6 +65,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -93,6 +98,11 @@ Q_TRAIN, MAX_GT = 728, 64
 # a d_value row collects hundreds of corners
 CLUSTERED = (0.45, 0.55)
 CLIP_LEN, TRAIN_STEPS = 5, 3
+# two 16-byte pieces a lane took K1 to this many registers a thread and
+# ran it slower (fewer warps in flight); the kernels on K1's skeleton are
+# held under it, with at most this many bytes of spill
+REGISTER_WARNING, SPILL_LIMIT = 112, 16
+REGISTER_HELD = ("ms_deform_attn_fwd_v45", "ms_deform_attn_fwd_v6")
 
 
 class CheckFailed(Exception):
@@ -204,6 +214,35 @@ def bound_bwd(value, levels, loc, attn):
     return _roofline(nbytes, 4 * n_corner * d,
                      bound_ms_design=design / PEAK_BYTES_PER_S * 1e3,
                      bytes_design=design)
+
+
+def ptxas_usage(log: str):
+    """Each entry function's registers and spill bytes from `ptxas -v`."""
+    out, current, props = [], None, None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", ln)
+        if m:
+            current = {"function": m.group(1)}
+            out.append(current)
+            continue
+        m = re.search(r"Function properties for (\w+)", ln)
+        if m:
+            props = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      ln)
+        if m and current is not None and props == current["function"]:
+            current["spill_stores"] = int(m.group(1))
+            current["spill_loads"] = int(m.group(2))
+            continue
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and current is not None:
+            current["registers"] = int(m.group(1))
+    for rec in out:
+        rec.setdefault("spill_stores", 0)
+        rec.setdefault("spill_loads", 0)
+        rec.setdefault("registers", 0)
+    return out
 
 
 def time_ms(fn, iters=200, warmup=20) -> float:
@@ -723,9 +762,10 @@ def phase_kernel_variants(device="cuda"):
             ("d40", dict(levels=small, q=33, h=2, d=40))):
         cases.append((case, lambda dt, kw=kw: sampler_inputs(
             dtype=dt, device=device, **kw)))
-    # v1 and v8 where the points of a level land on a few rows (at the
-    # small levels' 6x8 and at 1536x800's 25x48 every point of a level
-    # touches the same two or five): v8's row groups have many members
+    # the kernels on K1's grid where the points of a level land on a few
+    # rows (at the small levels' 6x8 and at 1536x800's 25x48 every point of
+    # a level touches the same two or five): v8's row groups have many
+    # members, and the corner rows of a warp's points coincide
     clustered = [(f"clustered_{name}", lambda dt, levels=levels:
                   sampler_inputs(levels, dtype=dt, device=device, seed=7,
                                  loc_range=CLUSTERED))
@@ -739,16 +779,24 @@ def phase_kernel_variants(device="cuda"):
 
     # (case, inputs, variants, queries a block: None for each variant's)
     runs = [(c, m, tuple(variants), None) for c, m in cases] + \
-        [(c, m, ("v1", "v8"), (64, 128, 256)) for c, m in clustered]
+        [(c, m, ("v1", "v4", "v5", "v6", "v8"), (64, 128, 256))
+         for c, m in clustered]
     for case, make, labels, case_tqs in runs:
         for dt in (torch.float32, torch.bfloat16):
             value, levels, loc, attn = make(dt)
             want = ms_deform_attn_torch(value.float(), levels, loc, attn)
+            v4_out = {}       # TQ -> v4's output, which v5 must equal
             for label in labels:
                 kname, fn, plain, tqs, rule = variants[label]
                 for tq in case_tqs or tqs:
                     got = fn(value, levels, loc, attn, TQ=tq)
                     torch.cuda.synchronize()
+                    if label == "v4":
+                        v4_out[tq] = got
+                    elif label == "v5":
+                        check(torch.equal(got, v4_out[tq]),
+                              f"v5 {case} {dt} TQ={tq}: not equal to v4 bit "
+                              f"for bit")
                     check(got.dtype == dt and got.shape == want.shape,
                           f"{label} {case}: output {got.dtype} "
                           f"{tuple(got.shape)}")
@@ -1521,9 +1569,17 @@ def main() -> int:
     from mo_yolo_tpu_torch.utils import cuda_build
     t0 = time.perf_counter()
     cuda_build.build(KERNELS)
-    emit("build", seconds=time.perf_counter() - t0,
-         ptxas={k: [ln for ln in v.splitlines() if "registers" in ln or
-                    "spill" in ln] for k, v in cuda_build.build_log.items()})
+    usage = {k: ptxas_usage(v) for k, v in cuda_build.build_log.items()}
+    emit("build", seconds=time.perf_counter() - t0, ptxas=usage,
+         register_warning=REGISTER_WARNING)
+    for name in REGISTER_HELD:
+        if name not in usage:       # built by an earlier run: no report
+            continue
+        check(bool(usage[name]), f"{name}: no ptxas report")
+        for rec in usage[name]:
+            check(rec["registers"] < REGISTER_WARNING and
+                  max(rec["spill_stores"], rec["spill_loads"]) <= SPILL_LIMIT,
+                  f"{name}: {rec}")
 
     k1 = phase_kernel()
     k2 = phase_kernel_bwd()

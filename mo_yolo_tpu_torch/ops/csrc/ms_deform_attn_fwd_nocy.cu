@@ -237,7 +237,7 @@ extern "C" int ms_deform_attn_fwd_nocy(const void* value, const void* loc,
                                        int D, int L, int P, int TQ,
                                        const int* hw, void* stream) {
   if (L < 1 || L > MAX_LEVELS || D < 1 || B < 1 || B > 65535 || Q < 1 ||
-      H < 1 || P < 1 || L * P > MAX_LP || TQ < 1 || pair_lanes(D) == 0 ||
+      H < 1 || P < 1 || L * P > MAX_LP || TQ < 1 || D % 2 != 0 || D > 64 ||
       ((uintptr_t)ws & 15) != 0)
     return (int)cudaErrorInvalidValue;
   Levels lv;

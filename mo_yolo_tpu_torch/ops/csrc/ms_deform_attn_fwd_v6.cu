@@ -6,123 +6,85 @@
 // value dtype; everything after is f32:
 //
 //   wx = (1 - tx)*a and tx*a, rounded to the value dtype (one-hot form)
-//   u  = (wx0*v[y, x0] + wx1*v[y, x0+1]) * wy, wy = 1 - ty or ty, in f32
+//   out = sum over levels, points and corners of wx*wy*v in f32, wy = 1 - ty
+//         or ty, rounded once.
 //
-// and per level the point sum of u is taken before the level's
-// contribution meets the output, as in `_kernel_v6`, whose lever is the
-// point sum before the y-sum: on the TPU it moves the narrow y-sum product
-// from TQ*P rows to TQ. A gather has no counterpart of that lever: its
-// y-sum is two fused multiply-adds a point, so this kernel is v45's with
-// f32 intermediates, and its time says what the rounding points cost, not
-// what the reassociation saves.
+// `_kernel_v6`'s lever is the point sum before the y-sum: on the TPU it
+// moves the narrow y-sum product from TQ*P rows to TQ. A gather has no
+// counterpart of that lever: its y-sum is two multiply-adds a point. So
+// this kernel is the main-path kernel's arithmetic with v6's one rounding
+// point, and its time says what that rounding costs, not what the
+// reassociation saves.
 //
-// What bounds it on the card: the grid, then bytes, as v45 (`walk_pairs`:
-// a block of 1024 threads per (batch, query tile), two elements a lane).
+// What bounds it on the card: bytes (the corner rows, as the main-path
+// kernel), and before them the loads a warp keeps in flight. The TPU's
+// grid (a block of all heads per (batch, query tile): 10 blocks at Q=600
+// on 132 SMs, two elements a lane) was what the card paid for. The design
+// is the main-path kernel's (`ms_deform_attn_fwd.cu`), shared with v1 and
+// v45 (`walk_points` in sampler_common.cuh):
+//
+// - the grid: one warp per (b, q, h), on the native [B,S,H,D] value, loc
+//   and attn, writing [B,Q,H*D] directly (4,800 warps at Q=600);
+// - the warp: the flat loop over the L*P points, one point at a time in
+//   each of 32/G sub-groups of G lanes, which load its four corner rows in
+//   16-byte pieces (`load_corners`, `Piece<T, true>`); each lane sums its
+//   piece's corners times their weight in f32, and a shuffle reduction
+//   joins the sub-groups;
+// - loc and attn are loaded once per warp with coalesced loads and handed
+//   out by shuffles (`WarpPoints`); the level table is read with constant
+//   indices (`level_at`).
+//
+// A row that is not a multiple of 16 bytes, or not on a 16-byte boundary,
+// takes the same kernel with one element a lane piece (`Piece<T, false>`).
+// TQ, the study's queries a block, does not tile this grid: it is checked
+// and otherwise unused.
 //
 // Plain C entry point, bound with ctypes; it launches on the caller's
 // stream and returns cudaGetLastError() after the launch.
 
 #include "sampler_common.cuh"
 
-#define THREADS 1024
-
 // value [B,S,H,D]; loc [B,Q,H,L,P,2] f32; attn [B,Q,H,L,P] f32;
-// out [B,Q,H*D]. D even, at most 64; G = pair_lanes(D).
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
+// out [B,Q,H*D]; the grid and warp of `walk_points`.
+template <typename T, bool VEC>
+__global__ void __launch_bounds__(WARP_GRID_THREADS)
     fwd_v6_kernel(const T* __restrict__ value, const float* __restrict__ loc,
                   const float* __restrict__ attn, T* __restrict__ out, int S,
-                  int Q, int H, int D, int L, int P, int TQ, int G,
-                  Levels lv) {
-  walk_pairs<T>(value, loc, attn, out, S, Q, H, D, L, P, TQ, G,
-                [&](const float* lp, const float* ap, const T* vb,
-                    long long row, bool live) {
-    float2 acc = make_float2(0.f, 0.f);
-    for (int l = 0; l < L; ++l) {
-      const int hl = lv.h[l], wl = lv.w[l];
-      const T* vl = vb + lv.start[l] * row;
-      float2 lvl = make_float2(0.f, 0.f);
-      for (int p = 0; p < P; ++p) {
-        const int i = l * P + p;
-        const float x = pixel(lp[2 * i], wl);
-        const float x0 = floorf(x), tx = x - x0;
-        const float wx0 = round_to<T>((1.f - tx) * ap[i]);
-        const float wx1 = round_to<T>(tx * ap[i]);
-        const float y = pixel(lp[2 * i + 1], hl);
-        const float y0 = floorf(y), ty = y - y0;
+                  int Q, int H, int D, int L, int P, int G,
+                  long long n_warps, Levels lv) {
+  constexpr int N = Piece<T, VEC>::N, K = row_pieces(VEC);
+  walk_points<T, VEC>(
+      value, loc, attn, out, S, Q, H, D, L, P, G, n_warps, lv,
+      [&](const Corners& cn, float, float, float a,
+          const float (&v)[4][K][N], float (&acc)[K][N]) {
+        // the x weights with attn, rounded to the value dtype (v6's one
+        // rounding point); 0 outside
+        const float wx[2] = {round_to<T>(__fmul_rn(1.f - cn.tx, a)),
+                             round_to<T>(__fmul_rn(cn.tx, a))};
 #pragma unroll
-        for (int cy = 0; cy < 2; ++cy) {
-          const float fy = y0 + (float)cy;
-          if (!live || !inside(fy, hl)) continue;
-          const T* vr = vl + (long long)fy * wl * row;
-          float2 t = make_float2(0.f, 0.f);
+        for (int c = 0; c < 4; ++c) {
+          const float w = cn.ok[c] ? wx[c & 1] * cn.wy(c) : 0.f;
 #pragma unroll
-          for (int cx = 0; cx < 2; ++cx) {
-            const float fx = x0 + (float)cx;
-            if (!inside(fx, wl)) continue;
-            const float w = cx ? wx1 : wx0;
-            const float2 v = Pair<T>::load(vr + (long long)fx * row);
-            t.x += w * v.x;
-            t.y += w * v.y;
-          }
-          const float wy = cy ? ty : 1.f - ty;
-          lvl.x += t.x * wy;  // the level's point sum, f32
-          lvl.y += t.y * wy;
+          for (int k = 0; k < K; ++k)
+#pragma unroll
+            for (int n = 0; n < N; ++n) acc[k][n] += w * v[c][k][n];
         }
-      }
-      acc.x += lvl.x;
-      acc.y += lvl.y;
-    }
-    return acc;
-  });
+      });
 }
 
-template <typename T>
-static int launch(const void* value, const void* loc, const void* attn,
-                  void* out, int B, int S, int Q, int H, int D, int L, int P,
-                  int TQ, const Levels& lv, cudaStream_t stream) {
-  const int G = pair_lanes(D);
-  const size_t smem = (size_t)TQ * H * L * P * 3 * sizeof(float);
-  if (G == 0 || smem > MAX_DYNAMIC_SMEM ||
-      (uintptr_t)value % (2 * sizeof(T)) != 0 ||
-      (uintptr_t)out % (2 * sizeof(T)) != 0)
-    return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      fwd_v6_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((Q + TQ - 1) / TQ, B);
-  fwd_v6_kernel<T><<<grid, THREADS, smem, stream>>>(
-      (const T*)value, (const float*)loc, (const float*)attn, (T*)out, S, Q,
-      H, D, L, P, TQ, G, lv);
-  return (int)cudaGetLastError();
-}
+template <typename T, bool VEC>
+struct FwdV6 {
+  static WarpGridKernel<T> fn() { return fwd_v6_kernel<T, VEC>; }
+};
 
 // dtype: 0 = f32, 1 = bf16, 2 = fp16 (value and out). hw: L pairs (h, w).
-// TQ: queries per block. D even, at most 64; value and out aligned to two
-// elements.
+// TQ: the study's queries a block (checked, not used). D <= 128 and
+// L*P <= 64.
 extern "C" int ms_deform_attn_fwd_v6(const void* value, const void* loc,
                                      const void* attn, void* out, int dtype,
                                      int B, int S, int Q, int H, int D, int L,
                                      int P, int TQ, const int* hw,
                                      void* stream) {
-  if (L < 1 || L > MAX_LEVELS || D < 1 || B < 1 || B > 65535 || Q < 1 ||
-      H < 1 || P < 1 || TQ < 1)
-    return (int)cudaErrorInvalidValue;
-  Levels lv;
-  if (!fill_levels(lv, hw, L, S)) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
-  switch (dtype) {
-    case 0:
-      return launch<float>(value, loc, attn, out, B, S, Q, H, D, L, P, TQ, lv,
-                           st);
-    case 1:
-      return launch<__nv_bfloat16>(value, loc, attn, out, B, S, Q, H, D, L, P,
-                                   TQ, lv, st);
-    case 2:
-      return launch<__half>(value, loc, attn, out, B, S, Q, H, D, L, P, TQ, lv,
-                            st);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  return warp_grid_entry<FwdV6>(value, loc, attn, out, dtype, B, S, Q, H, D,
+                                L, P, TQ, hw, stream);
 }

@@ -4,9 +4,10 @@
 // rounding of an f32 intermediate to the value dtype, the coordinate
 // rounding, the staging of a query tile's loc and attn into shared memory,
 // one point's hat-weighted sample (v2), 16-byte row pieces (v3, v7, K1, K2,
-// nocy, v1, v8), two-element row pieces with the value dtype's packed
-// product (v45 and v6), and the sub-group row plan, a warp's points handed
-// out by shuffles and a point's corner rows (K1, K2, nocy, v1, v8).
+// nocy, v1, v45, v6, v8), the sub-group row plan, a warp's points handed
+// out by shuffles and a point's corner rows (K1, K2, nocy, v1, v45, v6,
+// v8), and K1's warp grid with its launch and C entry point for the study
+// variants that sum a row over the points (v1, v45, v6).
 
 #pragma once
 
@@ -178,124 +179,6 @@ struct Vec<__half> {
     *reinterpret_cast<uint4*>(p) = r;
   }
 };
-
-// Two neighbouring elements of a row as a float2, and the value dtype's
-// packed pair: `round` rounds a float2 to it; `mul(a, w)` rounds a and w to
-// it and multiplies them there (one `__hmul2` in bf16 and fp16, which is
-// correctly rounded, as the TPU kernel's product in the value dtype),
-// returned as floats.
-template <typename T>
-struct Pair;
-
-template <>
-struct Pair<float> {
-  static __device__ __forceinline__ float2 load(const float* p) {
-    return *reinterpret_cast<const float2*>(p);
-  }
-  static __device__ __forceinline__ float2 round(float2 v) { return v; }
-  static __device__ __forceinline__ float2 mul(float2 a, float w) {
-    return make_float2(a.x * w, a.y * w);
-  }
-  static __device__ __forceinline__ void store(float* p, float2 v) {
-    *reinterpret_cast<float2*>(p) = v;
-  }
-};
-
-template <>
-struct Pair<__nv_bfloat16> {
-  static __device__ __forceinline__ float2 load(const __nv_bfloat16* p) {
-    return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
-  }
-  static __device__ __forceinline__ float2 round(float2 v) {
-    return __bfloat1622float2(__floats2bfloat162_rn(v.x, v.y));
-  }
-  static __device__ __forceinline__ float2 mul(float2 a, float w) {
-    return __bfloat1622float2(__hmul2(__floats2bfloat162_rn(a.x, a.y),
-                                      __float2bfloat162_rn(w)));
-  }
-  static __device__ __forceinline__ void store(__nv_bfloat16* p, float2 v) {
-    *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(v.x, v.y);
-  }
-};
-
-template <>
-struct Pair<__half> {
-  static __device__ __forceinline__ float2 load(const __half* p) {
-    return __half22float2(*reinterpret_cast<const __half2*>(p));
-  }
-  static __device__ __forceinline__ float2 round(float2 v) {
-    return __half22float2(__floats2half2_rn(v.x, v.y));
-  }
-  static __device__ __forceinline__ float2 mul(float2 a, float w) {
-    return __half22float2(__hmul2(__floats2half2_rn(a.x, a.y),
-                                  __float2half2_rn(w)));
-  }
-  static __device__ __forceinline__ void store(__half* p, float2 v) {
-    *reinterpret_cast<__half2*>(p) = __floats2half2_rn(v.x, v.y);
-  }
-};
-
-// The TPU kernels' grid with two elements a lane, shared by the v45 and v6
-// kernels. Block (tile, b) owns queries [tile*TQ, tile*TQ + TQ) of batch b
-// with all heads; the tile's loc and attn ([nq, H, L, P, 2] and
-// [nq, H, L, P] f32) are staged into shared memory with coalesced loads.
-// G lanes (a power of two, 2G >= D) carry the row of one (q, h) pair, two
-// elements a lane, so a warp carries 32/G pairs at once (two at D=32).
-// For each pair, every lane of the warp calls
-//   body(lp, ap, vb, row, live) -> float2,
-// lp and ap the pair's loc and attn, vb the pair's head and first element
-// in batch b's value, row the distance in elements between pixels, and
-// `live` false for a lane with no element (D < 2G) or no pair (the warp's
-// last round); such a lane must not load, but reaches every shuffle. The
-// live lanes store the result as elements d0, d0 + 1 of the pair's row.
-template <typename T, typename Body>
-__device__ __forceinline__ void walk_pairs(const T* __restrict__ value,
-                                           const float* __restrict__ loc,
-                                           const float* __restrict__ attn,
-                                           T* __restrict__ out, int S, int Q,
-                                           int H, int D, int L, int P, int TQ,
-                                           int G, Body body) {
-  extern __shared__ float smem[];
-  const int LP = L * P;
-  const int b = blockIdx.y;
-  const int q0 = blockIdx.x * TQ;
-  const int nq = min(TQ, Q - q0);  // the last tile may be partial
-  const int n_pairs = nq * H;
-  float* s_loc = smem;                           // [nq, H, L, P, 2]
-  float* s_attn = smem + (size_t)TQ * H * LP * 2;  // [nq, H, L, P]
-  const long long first = ((long long)b * Q + q0) * H;  // first (q, h) row
-  stage(s_loc, loc + first * LP * 2, n_pairs * LP * 2);
-  stage(s_attn, attn + first * LP, n_pairs * LP);
-  __syncthreads();
-
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int n_warps = blockDim.x >> 5;
-  const int per_warp = 32 / G, slot = lane / G;
-  const int d0 = (lane & (G - 1)) * 2;
-  const long long row = (long long)H * D;
-  // the trip count depends on the warp alone, so every lane reaches the
-  // body's shuffles
-  for (int base = warp * per_warp; base < n_pairs;
-       base += n_warps * per_warp) {
-    const bool live = base + slot < n_pairs && d0 < D;
-    const int pair = min(base + slot, n_pairs - 1);  // pair = q_local*H + h
-    const int h = pair % H;
-    const T* vb = value + (long long)b * S * row + (long long)h * D +
-                  min(d0, D - 2);
-    const float2 r = body(s_loc + pair * LP * 2, s_attn + pair * LP, vb, row,
-                          live);
-    if (live) Pair<T>::store(out + (first + pair) * D + d0, r);
-  }
-}
-
-// G for `walk_pairs`: the least power of two with 2G >= D; 0 where the
-// skeleton does not take D (odd, or more than 64 elements).
-static inline int pair_lanes(int D) {
-  if (D < 2 || D % 2 != 0 || D > 64) return 0;
-  int G = 1;
-  while (2 * G < D) G *= 2;
-  return G;
-}
 
 // ---------------------------------------------------------------- K1, K2
 
@@ -501,4 +384,148 @@ __device__ __forceinline__ void load_corners(
         for (int n = 0; n < N; ++n) v[c][k][n] = 0.f;
       }
     }
+}
+
+// ------------------------------------------ K1's warp grid (v1, v45, v6)
+
+#define WARP_GRID_THREADS 256  // 8 warps a block
+
+// K1's grid and warp for a study variant that sums each lane's piece of
+// the row over the points: one warp per (b, q, h) on the native layout
+// (value [B,S,H,D]; loc [B,Q,H,L,P,2] and attn [B,Q,H,L,P] f32), writing
+// out [B,Q,H*D]; warp index = (b*Q + q)*H + h, also the row of loc, attn
+// and out it owns. The flat loop over the L*P points takes one point at a
+// time in each of 32/G sub-groups of G lanes, K pieces of N elements a
+// lane. For each point, every lane calls
+//   body(cn, x, y, a, v, acc)
+// cn the point's corners at its level (`Corners`; none inside for a lane
+// past the last point), x and y its pixel coordinates, a its attn weight
+// (0 past the last point), v the lane's pieces of the four corner rows
+// (zeros outside, `load_corners`) and acc the lane's f32 sums, to which
+// the body adds the point's terms. A shuffle reduction then joins the
+// sub-groups, and sub-group 0 stores the row, rounded once.
+template <typename T, bool VEC, typename Body>
+__device__ __forceinline__ void walk_points(
+    const T* __restrict__ value, const float* __restrict__ loc,
+    const float* __restrict__ attn, T* __restrict__ out, int S, int Q, int H,
+    int D, int L, int P, int G, long long n_warps, const Levels& lv,
+    Body body) {
+  using R = Piece<T, VEC>;
+  constexpr int N = R::N, K = row_pieces(VEC);
+  const long long warp =
+      ((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  const int lane = threadIdx.x & 31;
+  if (warp >= n_warps) return;  // whole warps leave together
+  const int h = (int)(warp % H);
+  const long long b = warp / H / Q;
+  const int LP = L * P;
+  WarpPoints pts;
+  pts.load(loc + warp * LP * 2, attn + warp * LP, LP, lane);
+  const int group = lane / G, n_groups = 32 / G, sl = lane & (G - 1);
+  const long long row = (long long)H * D;  // elements between rows of S
+  const T* vb = value + b * S * row + (long long)h * D;
+
+  float acc[K][N];
+#pragma unroll
+  for (int k = 0; k < K; ++k)
+#pragma unroll
+    for (int n = 0; n < N; ++n) acc[k][n] = 0.f;
+  // the trip count depends on the warp alone, so every lane reaches the
+  // shuffles
+  for (int i0 = 0; i0 < LP; i0 += n_groups) {
+    const int i = i0 + group;  // i = l * P + p
+    const bool live = i < LP;
+    float lx, ly, a;
+    pts.get(live ? i : 0, lx, ly, a);
+    int hl, wl;
+    long long first;
+    level_at(lv, (live ? i : 0) / P, hl, wl, first);
+    Corners cn;
+    cn.at(lx, ly, hl, wl, live);
+    float v[4][K][N];
+    load_corners<T, VEC, K>(cn, vb + first * row, row, sl, G, D, v);
+    body(cn, pixel(lx, wl), pixel(ly, hl), live ? a : 0.f, v, acc);
+  }
+  for (int off = 16; off >= G; off >>= 1)
+#pragma unroll
+    for (int k = 0; k < K; ++k)
+#pragma unroll
+      for (int n = 0; n < N; ++n)
+        acc[k][n] += __shfl_xor_sync(0xffffffffu, acc[k][n], off);
+  if (group == 0) {
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const int e = piece_at<N>(sl, k, G);
+      if (e < D) R::store(out + warp * D + e, acc[k]);
+    }
+  }
+}
+
+// A warp-grid kernel: value, loc, attn, out, S, Q, H, D, L, P, G, the
+// number of warps and the level table.
+template <typename T>
+using WarpGridKernel = void (*)(const T*, const float*, const float*, T*,
+                                int, int, int, int, int, int, int, long long,
+                                Levels);
+
+template <typename T, bool VEC>
+static int launch_warp_grid(WarpGridKernel<T> kernel, const void* value,
+                            const void* loc, const void* attn, void* out,
+                            int B, int S, int Q, int H, int D, int L, int P,
+                            const Levels& lv, cudaStream_t stream) {
+  const int G = row_lanes(D, Piece<T, VEC>::N, row_pieces(VEC));
+  if (G == 0) return (int)cudaErrorInvalidValue;
+  const long long n_warps = (long long)B * Q * H;
+  const long long blocks =
+      (n_warps * 32 + WARP_GRID_THREADS - 1) / WARP_GRID_THREADS;
+  if (blocks > 2147483647LL) return (int)cudaErrorInvalidValue;
+  kernel<<<(unsigned)blocks, WARP_GRID_THREADS, 0, stream>>>(
+      (const T*)value, (const float*)loc, (const float*)attn, (T*)out, S, Q,
+      H, D, L, P, G, n_warps, lv);
+  return (int)cudaGetLastError();
+}
+
+// One element a lane piece where a row is not a multiple of 16 bytes or
+// not on a 16-byte boundary; `Kernel<T, VEC>::fn()` is the variant's
+// kernel for T and VEC.
+template <typename T, template <typename, bool> class Kernel>
+static int launch_warp_grid_rows(const void* value, const void* loc,
+                                 const void* attn, void* out, int B, int S,
+                                 int Q, int H, int D, int L, int P,
+                                 const Levels& lv, cudaStream_t stream) {
+  if (rows_vec16<T>(value, D) && rows_vec16<T>(out, D))
+    return launch_warp_grid<T, true>(Kernel<T, true>::fn(), value, loc, attn,
+                                     out, B, S, Q, H, D, L, P, lv, stream);
+  return launch_warp_grid<T, false>(Kernel<T, false>::fn(), value, loc, attn,
+                                    out, B, S, Q, H, D, L, P, lv, stream);
+}
+
+// The C entry point of a warp-grid variant. dtype: 0 = f32, 1 = bf16,
+// 2 = fp16 (value and out). hw: L pairs (h, w). TQ: the study's queries a
+// block, which this grid does not tile by (checked, not used). D <= 128
+// and L*P <= 64.
+template <template <typename, bool> class Kernel>
+static int warp_grid_entry(const void* value, const void* loc,
+                           const void* attn, void* out, int dtype, int B,
+                           int S, int Q, int H, int D, int L, int P, int TQ,
+                           const int* hw, void* stream) {
+  if (L < 1 || L > MAX_LEVELS || D < 1 || D > MAX_ROW_D || B < 1 || Q < 1 ||
+      H < 1 || P < 1 || L * P > MAX_LP || TQ < 1)
+    return (int)cudaErrorInvalidValue;
+  Levels lv;
+  if (!fill_levels(lv, hw, L, S)) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (dtype) {
+    case 0:
+      return launch_warp_grid_rows<float, Kernel>(value, loc, attn, out, B, S,
+                                                  Q, H, D, L, P, lv, st);
+    case 1:
+      return launch_warp_grid_rows<__nv_bfloat16, Kernel>(
+          value, loc, attn, out, B, S, Q, H, D, L, P, lv, st);
+    case 2:
+      return launch_warp_grid_rows<__half, Kernel>(value, loc, attn, out, B, S,
+                                                   Q, H, D, L, P, lv, st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }

@@ -9,8 +9,8 @@ purpose not), with its shapes: value [B,S,H,D], loc [B,Q,H,L,P,2], attn
 [B,Q,H,L,P], output [B,Q,H·D] in the value dtype; loc and attn are held in
 f32. `TQ` is the number of queries one block of the TPU kernel owns; a
 last partial tile is padded (plain versions) or masked (the kernels that
-tile by it; v1, v8 and nocy run one warp per (batch, query, head) and do
-not use it).
+tile by it; v1, v4/v5, v6, v8 and nocy run one warp per (batch, query,
+head) and do not use it).
 
 What each studies, and what its kernel does on the card:
 
@@ -28,16 +28,16 @@ What each studies, and what its kernel does on the card:
   over the L·P·4 taps, the attention weight folded into the x weight, rows
   read by sub-groups of a warp with 16-byte loads. No layout preparation.
 - v4/v5 (`csrc/ms_deform_attn_fwd_v45.cu`): intermediates rounded to the
-  value dtype, u = t·cy a packed product in it; one block per (batch,
-  query tile) with all heads, two elements a lane. v4 hands a tap's y
-  weights from one lane to the row's others, v5 computes them in every
-  lane.
+  value dtype, u = t·cy a packed product in it. Its kernel is v1's grid
+  and sub-groups on the native layout; v4's compact y weights and v5's
+  full-width ones are the same values, so one code path serves both.
 - nocy (`csrc/ms_deform_attn_fwd_nocy.cu`): no y weight, the sum over a
   level's whole column; wrong on purpose (the TPU's ablation). Its kernel
   sums each column once into an f32 workspace, then samples those sums
   with two x taps a point on K1's grid.
 - v6 (`csrc/ms_deform_attn_fwd_v6.cu`): only the x weights rounded, the
-  point sum per level; v45's grid.
+  point sum per level. Its kernel is the main-path kernel's arithmetic with
+  that one rounding, on v1's grid and sub-groups.
 - v7 (`csrc/ms_deform_attn_fwd_v7.cu`): v3's arithmetic and sub-group warp
   on v2's grid, with v2's layout preparation.
 - v8 (`csrc/ms_deform_attn_fwd_v8.cu`): hat weights with attn in the x
@@ -409,8 +409,8 @@ def _operands(value: torch.Tensor, shapes: Shapes, loc: torch.Tensor,
 def _check_rows(name: str, value: torch.Tensor, rows: str) -> None:
     """What a kernel's row loads need. "vec16": 16-byte loads, so a row is
     a multiple of 16 bytes, at most 512, on a 16-byte boundary (v3, v7).
-    "pairs": two elements a lane (`walk_pairs`), so D is even and at most
-    64 and value lies on a two-element boundary (v45, nocy, v6)."""
+    "pairs": the study interface's rule that nocy keeps, D even and at most
+    64 and value on a two-element boundary."""
     D, esize = value.shape[3], value.element_size()
     row_bytes = D * esize
     if rows == "vec16" and (row_bytes % 16 or row_bytes > 512 or
@@ -500,17 +500,18 @@ def prepare_v3(value, shapes, loc, attn, TQ=64):
 
 
 def prepare_v45(value, shapes, loc, attn, TQ=64, compact_cy=True):
-    """v4 (`compact_cy`) and v5 need no layout preparation, but rows of two
-    elements a lane (`_native_layout`)."""
+    """v4 (`compact_cy`) and v5 need no layout preparation and tile
+    nothing (`_native_layout`)."""
     return _native_layout("ms_deform_attn_fwd_v45", fwd_v45, value, shapes,
-                          loc, attn, TQ, rows="pairs",
-                          extra=(int(bool(compact_cy)),))
+                          loc, attn, TQ, extra=(int(bool(compact_cy)),),
+                          tiled=False)
 
 
 def prepare_nocy(value, shapes, loc, attn, TQ=64):
-    """As `prepare_v45`, for the nocy ablation, with the workspace its
-    kernel sums every level's columns into: f32 [B,H,sum of W_l,D]. The
-    sampler hands a warp's points out by shuffles, so L*P is at most 64."""
+    """The nocy ablation needs no layout preparation, but an even D of at
+    most 64 (`_native_layout`), and the workspace its kernel sums every
+    level's columns into: f32 [B,H,sum of W_l,D]. The sampler hands a
+    warp's points out by shuffles, so L*P is at most 64."""
     B, _, H, D = value.shape
     if loc.dim() == 6 and loc.shape[3] * loc.shape[4] > MAX_LP:
         raise ValueError(f"ms_deform_attn_fwd_nocy takes L*P <= {MAX_LP}, "
@@ -521,9 +522,10 @@ def prepare_nocy(value, shapes, loc, attn, TQ=64):
 
 
 def prepare_v6(value, shapes, loc, attn, TQ=64):
-    """As `prepare_v45`, for v6."""
+    """v6 needs no layout preparation and tiles nothing
+    (`_native_layout`)."""
     return _native_layout("ms_deform_attn_fwd_v6", fwd_v6, value, shapes,
-                          loc, attn, TQ, rows="pairs")
+                          loc, attn, TQ, tiled=False)
 
 
 def prepare_v7(value, shapes, loc, attn, TQ=64):
@@ -582,7 +584,7 @@ def fwd_v45(value: torch.Tensor, shapes: Shapes, loc: torch.Tensor,
             compact_cy: bool = True) -> torch.Tensor:
     """Variants v4 (`compact_cy`) and v5. CPU tensor: `fwd_v45_torch`. CUDA
     tensor: the kernel `csrc/ms_deform_attn_fwd_v45.cu`, or an exception
-    (an odd D or one over 64 raises); never the plain version.
+    (D over 128 or L·P over 64 raises); never the plain version.
     `fwd_v45.launches` counts launches."""
     return _run(prepare_v45, fwd_v45_torch, value, shapes, loc, attn, TQ,
                 compact_cy=compact_cy)
@@ -592,15 +594,16 @@ def fwd_nocy(value: torch.Tensor, shapes: Shapes, loc: torch.Tensor,
              attn: torch.Tensor, TQ: int = 64) -> torch.Tensor:
     """The nocy ablation (wrong on purpose). CPU tensor: `fwd_nocy_torch`.
     CUDA tensor: the kernel `csrc/ms_deform_attn_fwd_nocy.cu`, or an
-    exception, as `fwd_v45`. `fwd_nocy.launches` counts launches."""
+    exception (an odd D or one over 64 raises); never the plain version.
+    `fwd_nocy.launches` counts launches."""
     return _run(prepare_nocy, fwd_nocy_torch, value, shapes, loc, attn, TQ)
 
 
 def fwd_v6(value: torch.Tensor, shapes: Shapes, loc: torch.Tensor,
            attn: torch.Tensor, TQ: int = 64) -> torch.Tensor:
     """Variant v6. CPU tensor: `fwd_v6_torch`. CUDA tensor: the kernel
-    `csrc/ms_deform_attn_fwd_v6.cu`, or an exception, as `fwd_v45`.
-    `fwd_v6.launches` counts launches."""
+    `csrc/ms_deform_attn_fwd_v6.cu`, or an exception, as `fwd_v45`; never
+    the plain version. `fwd_v6.launches` counts launches."""
     return _run(prepare_v6, fwd_v6_torch, value, shapes, loc, attn, TQ)
 
 

@@ -17,10 +17,10 @@ variant to the plain gather sampler in f32. Variants:
   v3      the levels fused into one pass, rows read by sub-groups of a warp
           with 16-byte loads
   v4, v5  intermediates rounded to the value dtype, u = t*cy a packed
-          product in it, a block per (batch, query tile) with all heads;
-          v4 hands a tap's y weights from one lane to the row's others, v5
-          computes them in every lane
-  v6      only the x weights rounded, the point sum per level, v4's grid
+          product in it; on the card v1's grid and warp, one code path for
+          both (v4's compact y weights and v5's are the same values)
+  v6      only the x weights rounded, the point sum per level; on the
+          card v1's grid and warp with the main-path kernel's arithmetic
   nocy    no y weight (wrong on purpose: the sum over a level's whole
           column; left out of --parity)
   v7      v3's arithmetic and warp on v2's grid (head-major, transposes

@@ -186,6 +186,44 @@ def test_study_kernel_sources_have_their_c_entry_points(name, n_args):
     assert "Replaces the TPU kernel" in src and "What bounds it" in src
 
 
+@pytest.mark.parametrize("name,tpu_kernel", [
+    ("ms_deform_attn_fwd_v45", "_kernel_v45"),
+    ("ms_deform_attn_fwd_v6", "_kernel_v6")])
+def test_s5_kernels_run_on_the_main_path_kernels_grid(name, tpu_kernel):
+    """S5's v4/v5 and v6 kernels run the main-path kernel's skeleton
+    (`walk_points`: a warp per (b, q, h), its points by shuffles, a point's
+    corner rows in pieces), not the TPU's grid of a block per query tile
+    with loc and attn in shared memory; each source names the TPU kernel it
+    replaces and what bounds it."""
+    from mo_yolo_tpu_torch.utils.cuda_build import CSRC
+
+    def code(text):
+        return "\n".join(ln.split("//")[0] for ln in text.splitlines())
+    src = (CSRC / f"{name}.cu").read_text()
+    assert "walk_pairs" not in code(src) and "__shared__" not in code(src)
+    assert "walk_points<T, VEC>(" in code(src)
+    header = code((CSRC / "sampler_common.cuh").read_text())
+    skeleton = header[header.index("void walk_points("):]
+    skeleton = skeleton[:skeleton.index("\n}\n")]
+    assert "WarpPoints pts;" in skeleton and "load_corners<" in skeleton
+    assert "__shared__" not in skeleton
+    assert f"Replaces the TPU kernel `scripts/kernel_variants_bench.py:" \
+        f"{tpu_kernel}`" in src
+    assert "What bounds it on the card: bytes" in src
+
+
+def test_shared_header_has_no_tpu_grid_skeleton():
+    """No kernel runs the TPU's grid of two elements a lane any more, so
+    the shared header holds neither its walk nor its two-element pieces."""
+    from mo_yolo_tpu_torch.utils.cuda_build import CSRC
+    header = (CSRC / "sampler_common.cuh").read_text()
+    for gone in ("walk_pairs", "struct Pair", "pair_lanes"):
+        assert gone not in header
+    for src in CSRC.glob("*.cu"):
+        text = src.read_text()
+        assert "walk_pairs" not in text and "Pair<" not in text, src.name
+
+
 def test_greedy_kernel_source_has_its_c_entry_point():
     """The greedy wrapper passes as many arguments as its C entry points
     take (conflict, valid, keep, B, M, the stream; M for the shared-memory
@@ -572,7 +610,7 @@ def test_variant_wrappers_raise_instead_of_falling_back(card, monkeypatch):
             fn(value.double(), shapes, loc, attn)
         with pytest.raises(ValueError):
             fn(value, shapes, loc, attn, TQ=0)
-        if fn in (dv.fwd_v1, dv.fwd_v8):
+        if fn in (dv.fwd_v1, dv.fwd_v45, dv.fwd_v6, dv.fwd_v8):
             # one warp per (b, q, h): no tile to stage, TQ is only checked
             assert torch.equal(fn(value, shapes, loc, attn, TQ=10 ** 6),
                                fn(value, shapes, loc, attn, TQ=64))
@@ -585,27 +623,29 @@ def test_variant_wrappers_raise_instead_of_falling_back(card, monkeypatch):
         with pytest.raises(ValueError, match="16 bytes"):
             fn(odd, shapes, loc, attn)
     assert dv.fwd_v1(odd, shapes, loc, attn).shape == (1, 10, 12)
-    # an odd D: the kernels with two elements a lane raise, v8 takes it
+    # an odd D: nocy keeps the study interface's even D and raises; the
+    # kernels on the main-path kernel's grid take it
     odd = torch.randn(1, value.shape[1], 2, 7, device=card)
-    for fn in (dv.fwd_v45, dv.fwd_nocy, dv.fwd_v6):
-        with pytest.raises(ValueError, match="even D"):
-            fn(odd, shapes, loc, attn)
-    assert dv.fwd_v8(odd, shapes, loc, attn).shape == (1, 10, 14)
+    with pytest.raises(ValueError, match="even D"):
+        dv.fwd_nocy(odd, shapes, loc, attn)
+    for fn in (dv.fwd_v45, dv.fwd_v6, dv.fwd_v8):
+        assert fn(odd, shapes, loc, attn).shape == (1, 10, 14)
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("tq", [64, 128, 256])
 @pytest.mark.parametrize("levels", ["1536x800", "small"])
-@pytest.mark.parametrize("variant", ["v1", "v8"])
+@pytest.mark.parametrize("variant", ["v1", "v4", "v5", "v6", "v8"])
 def test_v1_and_v8_kernels_on_clustered_points_on_card(card, monkeypatch,
                                                        variant, levels, tq):
-    """Every point in [0.45, 0.55] at the study's 1536x800 levels and at
-    the small ones (Q=600, H=8, D=32): at 6x8 every point of a level
-    touches the same two rows, so v8's row groups have up to 2P members.
-    f32 within 1e-5 of the plain sampler and of the variant's own plain
-    version; bf16: v1 within the 1e-2 rule of both, v8 within one bf16 ulp
-    at the output's scale of its own plain version on the same bf16
-    operands. One launch a call."""
+    """The kernels on the main-path kernel's grid (v1, v4/v5, v6, v8) with
+    every point in [0.45, 0.55] at the study's 1536x800 levels and at the
+    small ones (Q=600, H=8, D=32): at 6x8 every point of a level touches
+    the same two rows, so v8's row groups have up to 2P members. f32 within
+    1e-5 of the plain sampler and of the variant's own plain version; bf16:
+    v1 within the 1e-2 rule of both, the others (which round where the TPU
+    kernels do) within one bf16 ulp at the output's scale of their own
+    plain version on the same bf16 operands. One launch a call."""
     import mo_yolo_tpu_torch.ops.deform_attn_variants as dv
     from mo_yolo_tpu_torch.ops.deform_attn import ms_deform_attn_torch
     from mo_yolo_tpu_torch.scripts.kernel_variants_bench import level_shapes
@@ -614,17 +654,18 @@ def test_v1_and_v8_kernels_on_clustered_points_on_card(card, monkeypatch,
     value, shapes, loc, attn = _clustered_inputs(card, Q=600, seed=7,
                                                  shapes=shapes)
     vb = value.to(torch.bfloat16)
-    plain = getattr(dv, f"fwd_{variant}_torch")
+    name, kw = VARIANTS[variant]
+    plain = getattr(dv, f"fwd_{name}_torch")
     want = ms_deform_attn_torch(value, shapes, loc, attn)
     want_b = ms_deform_attn_torch(vb.float(), shapes, loc, attn)
-    own = plain(value, shapes, loc, attn, TQ=tq)
-    own_b = plain(vb if variant == "v8" else vb.float(), shapes, loc, attn,
-                  TQ=tq).float()
+    own = plain(value, shapes, loc, attn, TQ=tq, **kw)
+    own_b = plain(vb if variant in ROUNDING else vb.float(), shapes, loc,
+                  attn, TQ=tq, **kw).float()
     _no_plain_version(monkeypatch)
-    fn = getattr(dv, f"fwd_{variant}")
+    fn = getattr(dv, f"fwd_{name}")
     before = fn.launches
-    got = fn(value, shapes, loc, attn, TQ=tq)
-    got_b = fn(vb, shapes, loc, attn, TQ=tq)
+    got = fn(value, shapes, loc, attn, TQ=tq, **kw)
+    got_b = fn(vb, shapes, loc, attn, TQ=tq, **kw)
     torch.cuda.synchronize()
     assert fn.launches == before + 2
     torch.testing.assert_close(got, want, atol=F32_ATOL, rtol=0)
@@ -641,23 +682,56 @@ def test_v1_and_v8_kernels_on_clustered_points_on_card(card, monkeypatch,
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("variant", ["v1", "v8"])
+@pytest.mark.parametrize("variant", ["v1", "v4", "v5", "v6", "v8"])
 def test_v1_and_v8_kernels_take_the_main_path_kernels_rows(card, variant):
-    """v1 and v8 carry a row and a warp's points as the main-path kernel
-    does: D above 128 raises before any launch, and so does L*P above 64
-    (v8 takes at most 8 points, so at most 64 at 8 levels)."""
+    """v1, v4/v5, v6 and v8 carry a row and a warp's points as the
+    main-path kernel does: D above 128 raises before any launch, and so
+    does L*P above 64 (v8 takes at most 8 points, so at most 64 at 8
+    levels)."""
     import mo_yolo_tpu_torch.ops.deform_attn_variants as dv
-    fn = getattr(dv, f"fwd_{variant}")
+    name, kw = VARIANTS[variant]
+    fn = getattr(dv, f"fwd_{name}")
     value, shapes, loc, attn = _torch_inputs("q10", card)
     before = fn.launches
     with pytest.raises(ValueError, match="D <= 128"):
         fn(torch.zeros(1, value.shape[1], 2, 136, device=card), shapes, loc,
-           attn)
+           attn, **kw)
     wide = torch.rand(1, 10, 2, 3, 22, 2, device=card)
-    with pytest.raises(ValueError, match="L\\*P <= 64" if variant == "v1"
-                       else "at most 8 points"):
-        fn(value, shapes, wide, wide[..., 0].contiguous())
+    with pytest.raises(ValueError, match="at most 8 points" if variant == "v8"
+                       else "L\\*P <= 64"):
+        fn(value, shapes, wide, wide[..., 0].contiguous(), **kw)
     assert fn.launches == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+def test_v4_and_v5_kernels_are_equal_bit_for_bit_on_card(card, monkeypatch,
+                                                         dtype):
+    """v4's compact y weights and v5's full-width ones are the same
+    values, and the kernel runs one code path for both: equal outputs, bit
+    for bit, at the study's 1536x800 inputs, on clustered points and with
+    rows of one element a lane (D=6)."""
+    import mo_yolo_tpu_torch.ops.deform_attn_variants as dv
+    from mo_yolo_tpu_torch.scripts.kernel_variants_bench import (
+        level_shapes, make_inputs)
+    inputs = [make_inputs(800, 1536, torch.Generator().manual_seed(0),
+                          dtype=dtype, device=card)]
+    value, shapes, loc, attn = _clustered_inputs(
+        card, Q=600, seed=7, shapes=level_shapes(800, 1536))
+    inputs.append((value.to(dtype), shapes, loc, attn))
+    value, shapes, loc, attn = _torch_inputs("q70", card)
+    inputs.append((torch.randn(*value.shape[:3], 6, device=card).to(dtype),
+                   shapes, loc, attn))
+    _no_plain_version(monkeypatch)
+    before = dv.fwd_v45.launches
+    for value, shapes, loc, attn in inputs:
+        v4 = dv.fwd_v45(value, shapes, loc, attn, compact_cy=True)
+        v5 = dv.fwd_v45(value, shapes, loc, attn, compact_cy=False)
+        torch.cuda.synchronize()
+        assert v4.dtype == dtype and v4.abs().max() > 0
+        assert torch.equal(v4, v5)
+    assert dv.fwd_v45.launches == before + 2 * len(inputs)
 
 
 @pytest.mark.gpu

@@ -192,8 +192,9 @@ def test_nocy_plain_version_on_edge_cases_matches_pallas_interpret(
 def test_variant_wrappers_validate_before_launching(name):
     """What the kernels do not take raises before anything is built or
     launched; nothing falls back: `prepare_*` refuses a CPU tensor, a tile
-    too large for shared memory raises, and so does a plain version's tile
-    of no queries."""
+    too large for shared memory raises (the kernels that stage one: v2, v3,
+    v7 and, by the study interface's rule, nocy), and so does a plain
+    version's tile of no queries."""
     from mo_yolo_tpu_torch.ops import deform_attn_variants as dv
     value, shapes, loc, attn = (torch.from_numpy(a) if isinstance(
         a, np.ndarray) else a for a in SAMPLER_CASES["q10"]())
@@ -209,9 +210,10 @@ def test_variant_wrappers_validate_before_launching(name):
 
 
 def test_variant_row_rules():
-    """The row loads each kernel takes: two elements a lane (v45, nocy, v6:
-    an even D of at most 64) and 16-byte rows (v3, v7); v8 takes at most 8
-    points."""
+    """The row rules the wrappers hold: the study interface's even D of
+    at most 64 (nocy) and 16-byte rows (v3, v7); the kernels on the
+    main-path kernel's grid (v1, v45, v6, v8) take any D up to 128 with no
+    row rule; v8 takes at most 8 points."""
     from mo_yolo_tpu_torch.ops import deform_attn_variants as dv
     for D, ok in ((8, True), (32, True), (64, True), (6, True), (7, False),
                   (66, False)):
