@@ -9,7 +9,7 @@ Phases, each printed as one JSON line:
 2. build: compiles every kernel of the paths from
    `mo_yolo_tpu_torch/ops/csrc` with nvcc (one process per source, all
    started together) and reports each instantiation's registers and spills
-   from `ptxas -v`, holding S5's kernels under K1's 112-register warning
+   from `ptxas -v`, holding S3-S5's kernels under K1's 112-register warning
    with at most 16 bytes of spill;
 3. kernel: holds K1 (the sampler) against its plain PyTorch version at the
    streaming path's shapes, at a clustered case (728 queries, every point
@@ -27,9 +27,9 @@ Phases, each printed as one JSON line:
    `fwd_v3`, `fwd_v45` as v4 and v5, `fwd_nocy`, `fwd_v6`, `fwd_v7`,
    `fwd_v8`) against the plain sampler and their own plain versions at the
    study's inputs and at edge cases, with 64 and 128 queries a block (and
-   256 for v7 and v8), the kernels on the main-path kernel's grid (v1, v4,
-   v5, v6, v8) also on clustered points (every point in [0.45, 0.55]) at
-   64, 128 and 256, v4 equal to v5 bit for bit in every case, and S1
+   256 for v7 and v8), the kernels on the main-path kernel's grid (v1-v3,
+   v4, v5, v6, v8) also on clustered points (every point in [0.45, 0.55])
+   at 64, 128 and 256, v4 equal to v5 bit for bit in every case, and S1
    (`take_along_axis`) against `torch.gather`, exactly, also in its scalar
    forms; times each;
 7. study: the sampler study through its entry points
@@ -102,7 +102,8 @@ CLIP_LEN, TRAIN_STEPS = 5, 3
 # ran it slower (fewer warps in flight); the kernels on K1's skeleton are
 # held under it, with at most this many bytes of spill
 REGISTER_WARNING, SPILL_LIMIT = 112, 16
-REGISTER_HELD = ("ms_deform_attn_fwd_v45", "ms_deform_attn_fwd_v6")
+REGISTER_HELD = ("ms_deform_attn_fwd_v2", "ms_deform_attn_fwd_v3",
+                 "ms_deform_attn_fwd_v45", "ms_deform_attn_fwd_v6")
 
 
 class CheckFailed(Exception):
@@ -638,6 +639,27 @@ def bound_nocy(value, levels, loc, attn):
                      bytes_design=design)
 
 
+def bound_v2(value, levels, loc, attn):
+    """v2's least time is K1's (`bound`): the function is the same.
+    `bound_ms_design` counts what this design moves besides the kernel's
+    own bytes (`bound`'s): the value's head-major copy, read and written;
+    loc's and attn's, each cast to f32 where it is not (read, written),
+    then copied (read, written); and the [B,H,Q,D] output, which the
+    kernel writes and `finish` reads and writes again."""
+    import torch
+    rec = bound(value, levels, loc, attn)
+    b, _, h, d = value.shape
+    esize = value.element_size()
+    design = rec["bytes"] + 2 * value.numel() * esize + \
+        2 * b * loc.shape[1] * h * d * esize
+    for t in (loc, attn):
+        design += 2 * t.numel() * 4
+        if t.dtype != torch.float32:
+            design += t.numel() * (t.element_size() + 4)
+    return {**rec, "bound_ms_design": design / PEAK_BYTES_PER_S * 1e3,
+            "bytes_design": design}
+
+
 def hold_variant(rule, got, want, own_of, value, what):
     """Hold a study variant's output `got` to its rule; return its errors.
     `want` is the f32 sampler on `value.float()`, `own_of(v)` the variant's
@@ -779,7 +801,7 @@ def phase_kernel_variants(device="cuda"):
 
     # (case, inputs, variants, queries a block: None for each variant's)
     runs = [(c, m, tuple(variants), None) for c, m in cases] + \
-        [(c, m, ("v1", "v4", "v5", "v6", "v8"), (64, 128, 256))
+        [(c, m, ("v1", "v2", "v3", "v4", "v5", "v6", "v8"), (64, 128, 256))
          for c, m in clustered]
     for case, make, labels, case_tqs in runs:
         for dt in (torch.float32, torch.bfloat16):
@@ -810,6 +832,8 @@ def phase_kernel_variants(device="cuda"):
                         worst(label, f"{k}/{str(dt)[6:]}", e)
                     results[f"{label}/{case}/{str(dt)[6:]}/tq{tq}"] = errs
     timing = {}
+    # K1's bound for the rest: the same function, the same bytes
+    own_bound = {"nocy": bound_nocy, "v2": bound_v2}
     for name in LEVELS:
         for dt in (torch.bfloat16, torch.float32):
             value, levels, loc, attn = study_inputs(name, dt)
@@ -817,15 +841,24 @@ def phase_kernel_variants(device="cuda"):
             for label, (kname, fn, plain, _, _) in variants.items():
                 if label == "v5":           # v45's kernel, timed as v4
                     continue
+                # the kernel alone, on operands its wrapper prepared once;
+                # for v2 and v7 also their head-major copies without it
+                prepare = getattr(dv, "prepare_" + kname.split("_")[-1])
+                launch, _ = prepare(value, levels, loc, attn)
+                out = launch()
+                copies = {"copies_device_ms": device_time_ms(
+                    lambda: prepare(value, levels, loc, attn)[1](out))} \
+                    if label in ("v2", "v7") else {}
                 timing[f"{label}/{name}/{str(dt)[6:]}"] = {
                     "ms": time_ms(lambda: fn(value, levels, loc, attn)),
                     "device_ms": device_time_ms(
                         lambda: fn(value, levels, loc, attn)),
+                    "alone_device_ms": device_time_ms(launch), **copies,
                     "plain_ms": time_ms(
                         lambda: plain(value, levels, loc, attn), iters=10,
                         warmup=2),
-                    **(bound_nocy(value, levels, loc, attn)
-                       if label == "nocy" else bnd)}
+                    **(own_bound[label](value, levels, loc, attn)
+                       if label in own_bound else bnd)}
     gather = {}
     for S, N, axis in GATHER_SHAPES:
         v, idx = gather_inputs(S, N, axis, torch.device(device))
@@ -863,8 +896,13 @@ def phase_kernel_variants(device="cuda"):
               f"take_along_axis [{S},{N}] axis={axis} offset {off}: not "
               f"exact")
         gather[f"[{S},{N}] axis={axis} offset={off}"] = {"exact": True}
+    # what a head-major value gives K1's grid: v2's kernel alone (v1's
+    # arithmetic on [B,H,S,D]) over v1's alone (on [B,S,H,D])
+    head_major = {key[3:]: rec["alone_device_ms"] /
+                  timing["v1" + key[2:]]["alone_device_ms"]
+                  for key, rec in timing.items() if key.startswith("v2/")}
     emit("kernel_variants", checks=results, maxima=maxima, timing=timing,
-         gather=gather)
+         gather=gather, v2_over_v1_alone=head_major)
     recs = {"take_along_axis": gather["[19200,256] axis=0"]}
     for label, (kname, *_rest) in variants.items():
         if label == "v5":
@@ -1642,7 +1680,8 @@ def main() -> int:
             "replaces": replaces, "launches": study_launches[name],
             "launches_train": launches[name],
             **{k: rec[k] for k in keys},
-            **{k: rec[k] for k in design if k in rec},
+            **{k: rec[k] for k in design + ("alone_device_ms",
+                                            "copies_device_ms") if k in rec},
             "library_ms": rec.get("library_ms")})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -21,16 +21,16 @@
 // before them the loads a warp keeps in flight. The TPU's grid gave 10
 // blocks at Q=600 on 132 SMs, each warp walking its (q, h) pairs in turn
 // with one element a lane. So the design is the main-path kernel's
-// (`ms_deform_attn_fwd.cu`) with v1's arithmetic, shared with v45 and v6
-// (`walk_points` in sampler_common.cuh):
+// (`ms_deform_attn_fwd.cu`) with v1's arithmetic, shared with v2, v3, v45
+// and v6 (`walk_points` in sampler_common.cuh):
 //
 // - the grid: one warp per (b, q, h), on the native [B,S,H,D] value (4,800
 //   warps at Q=600);
 // - the warp: the flat loop over the L*P points, one point at a time in
 //   each of 32/G sub-groups of G lanes, which load its four corner rows in
 //   16-byte pieces (`Piece<T, true>`); each lane sums its piece's s times
-//   attn in f32, a shuffle reduction joins the sub-groups, and sub-group 0
-//   stores the row with 16-byte stores;
+//   attn in f32 (`HatPoint`, the body v2 shares), a shuffle reduction joins
+//   the sub-groups, and sub-group 0 stores the row with 16-byte stores;
 // - loc and attn are loaded once per warp with coalesced loads and handed
 //   out by shuffles (`WarpPoints`); the level table is read with constant
 //   indices (`level_at`).
@@ -53,30 +53,8 @@ __global__ void __launch_bounds__(WARP_GRID_THREADS)
                   const float* __restrict__ attn, T* __restrict__ out, int S,
                   int Q, int H, int D, int L, int P, int G,
                   long long n_warps, Levels lv) {
-  constexpr int N = Piece<T, VEC>::N, K = row_pieces(VEC);
-  walk_points<T, VEC>(
-      value, loc, attn, out, S, Q, H, D, L, P, G, n_warps, lv,
-      [&](const Corners&, float x, float y, float a,
-          const float (&v)[4][K][N], float (&acc)[K][N]) {
-        // hat weights of the taps x0, x0 + 1 and rows y0, y0 + 1; a corner
-        // outside its level was loaded as zeros, and a hat weight is finite
-        const float x0 = floorf(x), y0 = floorf(y);
-        const float hx[2] = {hat(x, x0), hat(x, x0 + 1.f)};
-        const float hy[2] = {hat(y, y0), hat(y, y0 + 1.f)};
-#pragma unroll
-        for (int k = 0; k < K; ++k)
-#pragma unroll
-          for (int n = 0; n < N; ++n) {
-            float s = 0.f;
-#pragma unroll
-            for (int cy = 0; cy < 2; ++cy) {
-              const float t =
-                  hx[0] * v[2 * cy][k][n] + hx[1] * v[2 * cy + 1][k][n];
-              s += hy[cy] * t;
-            }
-            acc[k][n] += a * s;  // attn on the point's sample
-          }
-      });
+  walk_points<T, VEC>(value, loc, attn, out, S, Q, H, D, L, P, G, n_warps,
+                      lv, HatPoint());
 }
 
 template <typename T, bool VEC>

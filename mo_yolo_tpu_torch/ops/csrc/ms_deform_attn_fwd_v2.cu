@@ -2,113 +2,66 @@
 //
 // Replaces the TPU kernel `scripts/kernel_variants_bench.py:_kernel_v2`
 // (launched by `fwd_v2`). It computes the sampler's function with v1's
-// arithmetic (hat weights, the attention weight on the per-point sum) and
-// what v2 studies: heads on the grid, (batch, head, query tile), and
-// head-major operands. The wrapper lays value out as [B,H,S,D] and loc and
-// attn as [B,H,Q,...]; the output is [B,H,Q,D] and the wrapper transposes it
-// back. Those transposes are the variant's cost and are timed with it.
+// arithmetic (hat weights, the attention weight on the per-point sum, f32
+// inside, the output rounded once) and what v2 studies: heads on the grid
+// and head-major operands. The wrapper lays value out as [B,H,S,D] and loc
+// and attn as [B,H,Q,...]; the output is [B,H,Q,D] and the wrapper
+// transposes it back. Those copies are the variant's cost and are timed
+// with it; the kernel alone measures what a head-major value gives the
+// main-path kernel's grid.
 //
-// What bounds it on the card: bytes. What the design does: in [B,H,S,D] a
-// block reads one head's slab, whose x-neighbours lie D elements apart (64
-// bytes in bf16 at D=32, against H*D*2 = 512 bytes in [B,S,H,D]), so the
-// two x taps of a point share a 128-byte line half the time. The tile's
-// loc and attn for its head (TQ*L*P*3 floats, 9 KB at TQ=64) are staged
-// into shared memory with coalesced loads; warps walk the tile's queries
-// with lanes over D. H times more blocks than v1 (80 at Q=600, TQ=64).
+// What bounds it on the card: bytes (the corner rows, as v1), and before
+// them the loads a warp keeps in flight. The TPU's grid (a 512-thread block
+// per (query tile, head, batch): 80 blocks at Q=600, one element a lane)
+// was what the card paid for. So the design is v1's
+// (`ms_deform_attn_fwd_v1.cu`) on the head-major layout, through the same
+// code (`walk_points` with `HEAD_MAJOR`, and the body `HatPoint`, in
+// sampler_common.cuh):
+//
+// - the grid: one warp per (b, h, q) on [B,H,S,D] (4,800 warps at Q=600),
+//   whose warp index is also its row of loc, attn and out; in [B,H,S,D] a
+//   point's x-neighbours lie D elements apart (64 bytes in bf16 at D=32,
+//   against H*D*2 = 512 in [B,S,H,D]);
+// - the warp: v1's, the points one at a time in sub-groups that load the
+//   four corner rows in 16-byte pieces, loc and attn by shuffles, a shuffle
+//   join of the sub-groups and 16-byte stores.
+//
+// A row that is not a multiple of 16 bytes, or not on a 16-byte boundary,
+// takes the same kernel with one element a lane piece (`Piece<T, false>`).
+// TQ, the study's queries a block, does not tile this grid: it is checked
+// and otherwise unused.
 //
 // Plain C entry point, bound with ctypes; it launches on the caller's
 // stream and returns cudaGetLastError() after the launch.
 
 #include "sampler_common.cuh"
 
-#define THREADS 512
-
 // value [B,H,S,D]; loc [B,H,Q,L,P,2] f32; attn [B,H,Q,L,P] f32;
-// out [B,H,Q,D]. Block (tile, h, b) owns queries [tile*TQ, tile*TQ + TQ)
-// of head h.
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
+// out [B,H,Q,D]; the grid and warp of `walk_points` on the head-major
+// layout.
+template <typename T, bool VEC>
+__global__ void __launch_bounds__(WARP_GRID_THREADS)
     fwd_v2_kernel(const T* __restrict__ value, const float* __restrict__ loc,
                   const float* __restrict__ attn, T* __restrict__ out, int S,
-                  int Q, int H, int D, int L, int P, int TQ, Levels lv) {
-  extern __shared__ float smem[];
-  const int LP = L * P;
-  const int b = blockIdx.z, h = blockIdx.y;
-  const int q0 = blockIdx.x * TQ;
-  const int nq = min(TQ, Q - q0);  // the last tile may be partial
-  float* s_loc = smem;                       // [nq, L, P, 2]
-  float* s_attn = smem + (size_t)TQ * LP * 2;  // [nq, L, P]
-  const long long slab = (long long)b * H + h;
-  const long long first = slab * Q + q0;  // first query row of the tile
-  stage(s_loc, loc + first * LP * 2, nq * LP * 2);
-  stage(s_attn, attn + first * LP, nq * LP);
-  __syncthreads();
-
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int n_warps = blockDim.x >> 5;
-  const T* vb = value + slab * S * D;
-  for (int q = warp; q < nq; q += n_warps) {
-    const float* lp = s_loc + q * LP * 2;
-    const float* ap = s_attn + q * LP;
-    for (int d = lane; d < D; d += 32) {
-      float acc = 0.f;
-      for (int l = 0; l < L; ++l) {
-        const int hl = lv.h[l], wl = lv.w[l];
-        const T* vl = vb + lv.start[l] * D;
-        for (int p = 0; p < P; ++p) {
-          const int i = l * P + p;
-          const float s = hat_sample(vl, (long long)D, d,
-                                     pixel(lp[2 * i], wl),
-                                     pixel(lp[2 * i + 1], hl), hl, wl);
-          acc += ap[i] * s;
-        }
-      }
-      out[(first + q) * D + d] = from_f32<T>(acc);
-    }
-  }
+                  int Q, int H, int D, int L, int P, int G,
+                  long long n_warps, Levels lv) {
+  walk_points<T, VEC, HEAD_MAJOR>(value, loc, attn, out, S, Q, H, D, L, P, G,
+                                  n_warps, lv, HatPoint());
 }
 
-template <typename T>
-static int launch(const void* value, const void* loc, const void* attn,
-                  void* out, int B, int S, int Q, int H, int D, int L, int P,
-                  int TQ, const Levels& lv, cudaStream_t stream) {
-  const size_t smem = (size_t)TQ * L * P * 3 * sizeof(float);
-  if (smem > MAX_DYNAMIC_SMEM) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      fwd_v2_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((Q + TQ - 1) / TQ, H, B);
-  fwd_v2_kernel<T><<<grid, THREADS, smem, stream>>>(
-      (const T*)value, (const float*)loc, (const float*)attn, (T*)out, S, Q,
-      H, D, L, P, TQ, lv);
-  return (int)cudaGetLastError();
-}
+template <typename T, bool VEC>
+struct FwdV2 {
+  static WarpGridKernel<T> fn() { return fwd_v2_kernel<T, VEC>; }
+};
 
 // dtype: 0 = f32, 1 = bf16, 2 = fp16 (value and out). hw: L pairs (h, w).
-// TQ: queries per block. All operands head-major, as above.
+// TQ: the study's queries a block (checked, not used). All operands
+// head-major, as above. D <= 128 and L*P <= 64.
 extern "C" int ms_deform_attn_fwd_v2(const void* value, const void* loc,
                                      const void* attn, void* out, int dtype,
                                      int B, int S, int Q, int H, int D, int L,
                                      int P, int TQ, const int* hw,
                                      void* stream) {
-  if (L < 1 || L > MAX_LEVELS || D < 1 || B < 1 || B > 65535 || Q < 1 ||
-      H < 1 || H > 65535 || P < 1 || TQ < 1)
-    return (int)cudaErrorInvalidValue;
-  Levels lv;
-  if (!fill_levels(lv, hw, L, S)) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
-  switch (dtype) {
-    case 0:
-      return launch<float>(value, loc, attn, out, B, S, Q, H, D, L, P, TQ, lv,
-                           st);
-    case 1:
-      return launch<__nv_bfloat16>(value, loc, attn, out, B, S, Q, H, D, L, P,
-                                   TQ, lv, st);
-    case 2:
-      return launch<__half>(value, loc, attn, out, B, S, Q, H, D, L, P, TQ,
-                            lv, st);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  return warp_grid_entry<FwdV2>(value, loc, attn, out, dtype, B, S, Q, H, D,
+                                L, P, TQ, hw, stream);
 }

@@ -5,145 +5,87 @@
 // studies: the levels fused into one pass. The TPU kernel stacks the levels
 // into one block-diagonal table so that a (head, query tile) issues one
 // product, with per-level guards so that no tap leaks into a neighbouring
-// level. Here there is no table: one flat loop covers the L*P*4 taps of a
-// (q, h) pair, each tap looks up its level's bounds and offset, and the
-// guards are the bounds test. As in the TPU kernel the attention weight is
-// folded into the x weight ((1 - tx) * a or tx * a) before the y weight.
+// level, and folds the attention weight into the x weight ((1 - tx) * a or
+// tx * a) before the y weight. Here there is no table: one flat loop covers
+// the L*P points of a (q, h), each point looks up its level's bounds and
+// offset, and the guards are the bounds test. Per corner c the weight is
 //
-// What bounds it on the card: bytes. What the design does: a row of D
-// values is read by a sub-group of a warp with 16-byte loads (four lanes
-// for a 64-byte bf16 row at D=32, eight for f32), so a warp has 32/G taps
-// in flight (eight in bf16) where the main-path kernel has one; the
-// sub-groups' partial sums meet in a shuffle reduction and sub-group 0
-// writes the row with 16-byte stores. loc and attn of the tile are staged
-// into shared memory; the grid is (batch, query tile), heads inside, as the
-// TPU kernel's.
+//   w = (wx(c) * a) * wy(c),   wx = 1 - tx or tx, wy = 1 - ty or ty,
+//
+// in f32, in the TPU kernel's order, and acc += w * v; sums are f32 and the
+// output is rounded once.
+//
+// What bounds it on the card: bytes (the corner rows, as the main-path
+// kernel), and before them the loads a warp keeps in flight. The TPU's
+// grid (a 1024-thread block per (batch, query tile) holding all heads: 10
+// blocks at Q=600 on 132 SMs, the tile's loc and attn staged into 73.7 KB
+// of shared memory, one tap at a time) was what the card paid for. So the
+// design is the main-path kernel's (`ms_deform_attn_fwd.cu`) with v3's
+// arithmetic, shared with v1, v2, v45 and v6 (`walk_points` in
+// sampler_common.cuh):
+//
+// - the grid: one warp per (b, q, h), on the native [B,S,H,D] value, loc
+//   and attn, writing [B,Q,H*D] directly (4,800 warps at Q=600);
+// - the warp: the flat loop over the L*P points, one point at a time in
+//   each of 32/G sub-groups of G lanes, which load its four corner rows in
+//   16-byte pieces (`load_corners`, `Piece<T, true>`); each lane sums its
+//   piece's corners times their weight in f32, and a shuffle reduction
+//   joins the sub-groups;
+// - loc and attn are loaded once per warp with coalesced loads and handed
+//   out by shuffles (`WarpPoints`); the level table is read with constant
+//   indices (`level_at`); nothing is staged in shared memory.
+//
+// A corner outside its level is loaded as zeros and its weight is zeroed by
+// a select, not a branch (branches left spills in the one-element
+// instantiations of v45), so a weight that is not finite never meets a
+// value. A row that is not a multiple of 16 bytes, or not on a 16-byte
+// boundary, takes the same kernel with one element a lane piece
+// (`Piece<T, false>`). TQ, the study's queries a block, does not tile this
+// grid: it is checked and otherwise unused.
 //
 // Plain C entry point, bound with ctypes; it launches on the caller's
 // stream and returns cudaGetLastError() after the launch.
 
 #include "sampler_common.cuh"
 
-#define THREADS 1024
-
 // value [B,S,H,D]; loc [B,Q,H,L,P,2] f32; attn [B,Q,H,L,P] f32;
-// out [B,Q,H*D]. D is a multiple of Vec<T>::N and rows are 16-byte
-// aligned. G, a power of two <= 32, is the number of lanes that carry one
-// row (G * N >= D). Block (tile, b) owns queries [tile*TQ, tile*TQ + TQ).
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
+// out [B,Q,H*D]; the grid and warp of `walk_points`.
+template <typename T, bool VEC>
+__global__ void __launch_bounds__(WARP_GRID_THREADS)
     fwd_v3_kernel(const T* __restrict__ value, const float* __restrict__ loc,
                   const float* __restrict__ attn, T* __restrict__ out, int S,
-                  int Q, int H, int D, int L, int P, int TQ, int G,
-                  Levels lv) {
-  constexpr int N = Vec<T>::N;
-  extern __shared__ float smem[];
-  const int LP = L * P;
-  const int b = blockIdx.y;
-  const int q0 = blockIdx.x * TQ;
-  const int nq = min(TQ, Q - q0);  // the last tile may be partial
-  const int n_pairs = nq * H;
-  float* s_loc = smem;                           // [nq, H, L, P, 2]
-  float* s_attn = smem + (size_t)TQ * H * LP * 2;  // [nq, H, L, P]
-  const long long first = ((long long)b * Q + q0) * H;  // first (q, h) row
-  stage(s_loc, loc + first * LP * 2, n_pairs * LP * 2);
-  stage(s_attn, attn + first * LP, n_pairs * LP);
-  __syncthreads();
-
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int n_warps = blockDim.x >> 5;
-  const int group = lane / G, n_groups = 32 / G;
-  const int d0 = (lane & (G - 1)) * N;  // this lane's first element
-  const bool live = d0 < D;
-  const int n_taps = LP * 4;
-  const long long row = (long long)H * D;  // elements between rows of S
-  // the trip counts below depend on the warp alone, so every lane reaches
-  // the shuffles
-  for (int pair = warp; pair < n_pairs; pair += n_warps) {
-    const int h = pair % H;  // pair = q_local * H + h
-    const float* lp = s_loc + pair * LP * 2;
-    const float* ap = s_attn + pair * LP;
-    const T* vb = value + (long long)b * S * row + (long long)h * D + d0;
-    float acc[N];
+                  int Q, int H, int D, int L, int P, int G,
+                  long long n_warps, Levels lv) {
+  constexpr int N = Piece<T, VEC>::N, K = row_pieces(VEC);
+  walk_points<T, VEC>(
+      value, loc, attn, out, S, Q, H, D, L, P, G, n_warps, lv,
+      [&](const Corners& cn, float, float, float a,
+          const float (&v)[4][K][N], float (&acc)[K][N]) {
 #pragma unroll
-    for (int k = 0; k < N; ++k) acc[k] = 0.f;
-    for (int t0 = 0; t0 < n_taps; t0 += n_groups) {
-      const int t = t0 + group;
-      if (t >= n_taps || !live) continue;
-      const int i = t >> 2, c = t & 3;  // i = l * P + p; corner (c&1, c>>1)
-      const int l = i / P;
-      const int hl = lv.h[l], wl = lv.w[l];
-      const float x = pixel(lp[2 * i], wl), y = pixel(lp[2 * i + 1], hl);
-      const float x0 = floorf(x), y0 = floorf(y);
-      const float fx = x0 + (float)(c & 1), fy = y0 + (float)(c >> 1);
-      // the level's guards: a tap outside its own map adds nothing
-      if (!inside(fx, wl) || !inside(fy, hl)) continue;
-      const float tx = x - x0, ty = y - y0;
-      const float w = (((c & 1) ? tx : 1.f - tx) * ap[i]) *
-                      ((c >> 1) ? ty : 1.f - ty);
-      const long long s = lv.start[l] + (long long)fy * wl + (long long)fx;
-      float v[N];
-      Vec<T>::load(vb + s * row, v);
+        for (int c = 0; c < 4; ++c) {
+          // attn folded into the x weight; 0 for a corner outside its level
+          const float w = cn.ok[c] ? (cn.wx(c) * a) * cn.wy(c) : 0.f;
 #pragma unroll
-      for (int k = 0; k < N; ++k) acc[k] += w * v[k];
-    }
-    for (int off = 16; off >= G; off >>= 1) {
+          for (int k = 0; k < K; ++k)
 #pragma unroll
-      for (int k = 0; k < N; ++k)
-        acc[k] += __shfl_xor_sync(0xffffffffu, acc[k], off);
-    }
-    if (group == 0 && live) Vec<T>::store(out + (first + pair) * D + d0, acc);
-  }
+            for (int n = 0; n < N; ++n) acc[k][n] += w * v[c][k][n];
+        }
+      });
 }
 
-template <typename T>
-static int launch(const void* value, const void* loc, const void* attn,
-                  void* out, int B, int S, int Q, int H, int D, int L, int P,
-                  int TQ, const Levels& lv, cudaStream_t stream) {
-  constexpr int N = Vec<T>::N;
-  if (D % N != 0 || D / N > 32 || ((uintptr_t)value & 15) != 0 ||
-      ((uintptr_t)out & 15) != 0)
-    return (int)cudaErrorInvalidValue;
-  int G = 1;
-  while (G * N < D) G *= 2;
-  const size_t smem = (size_t)TQ * H * L * P * 3 * sizeof(float);
-  if (smem > MAX_DYNAMIC_SMEM) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      fwd_v3_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((Q + TQ - 1) / TQ, B);
-  fwd_v3_kernel<T><<<grid, THREADS, smem, stream>>>(
-      (const T*)value, (const float*)loc, (const float*)attn, (T*)out, S, Q,
-      H, D, L, P, TQ, G, lv);
-  return (int)cudaGetLastError();
-}
+template <typename T, bool VEC>
+struct FwdV3 {
+  static WarpGridKernel<T> fn() { return fwd_v3_kernel<T, VEC>; }
+};
 
 // dtype: 0 = f32, 1 = bf16, 2 = fp16 (value and out). hw: L pairs (h, w).
-// TQ: queries per block. D*sizeof(value type) must be a multiple of 16 and
-// at most 512; value and out 16-byte aligned.
+// TQ: the study's queries a block (checked, not used). D <= 128 and
+// L*P <= 64.
 extern "C" int ms_deform_attn_fwd_v3(const void* value, const void* loc,
                                      const void* attn, void* out, int dtype,
                                      int B, int S, int Q, int H, int D, int L,
                                      int P, int TQ, const int* hw,
                                      void* stream) {
-  if (L < 1 || L > MAX_LEVELS || D < 1 || B < 1 || B > 65535 || Q < 1 ||
-      H < 1 || P < 1 || TQ < 1)
-    return (int)cudaErrorInvalidValue;
-  Levels lv;
-  if (!fill_levels(lv, hw, L, S)) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
-  switch (dtype) {
-    case 0:
-      return launch<float>(value, loc, attn, out, B, S, Q, H, D, L, P, TQ, lv,
-                           st);
-    case 1:
-      return launch<__nv_bfloat16>(value, loc, attn, out, B, S, Q, H, D, L, P,
-                                   TQ, lv, st);
-    case 2:
-      return launch<__half>(value, loc, attn, out, B, S, Q, H, D, L, P, TQ,
-                            lv, st);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  return warp_grid_entry<FwdV3>(value, loc, attn, out, dtype, B, S, Q, H, D,
+                                L, P, TQ, hw, stream);
 }

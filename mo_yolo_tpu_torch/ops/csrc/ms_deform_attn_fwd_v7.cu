@@ -13,21 +13,21 @@
 //        to the value dtype
 //   out = sum over the points of s in f32, rounded once.
 //
-// On the card that is v3's sub-group warp (`ms_deform_attn_fwd_v3.cu`) on
-// v2's grid: a row of D values is read by G lanes with 16-byte loads (four
-// lanes for a 64-byte bf16 row at D=32), so a warp has 32/G sub-groups;
-// the guards are the bounds test. The rounding point s is per point, so
-// the sub-groups split the points: gpp sub-groups share a point (the
-// largest power of two with gpp*P <= 32/G, two at D=32 bf16), each takes
-// every gpp-th (level, y tap) of it, two 16-byte loads each; a shuffle
-// sums the point's sub-groups, one of them adds s rounded, and a last
-// shuffle sums the points. The wrapper makes value [B,H,S,D] and loc and
-// attn [B,H,Q,...], as v2's does, and transposes the [B,H,Q,D] output
-// back; those transposes are part of the variant and of its time.
+// On the card that is a sub-group warp on the TPU kernel's grid (batch,
+// head, query tile): a row of D values is read by G lanes with 16-byte
+// loads (four lanes for a 64-byte bf16 row at D=32), so a warp has 32/G
+// sub-groups; the guards are the bounds test. The rounding point s is per
+// point, so the sub-groups split the points: gpp sub-groups share a point
+// (the largest power of two with gpp*P <= 32/G, two at D=32 bf16), each
+// takes every gpp-th (level, y tap) of it, two 16-byte loads each; a
+// shuffle sums the point's sub-groups, one of them adds s rounded, and a
+// last shuffle sums the points. The wrapper makes value [B,H,S,D] and
+// loc and attn [B,H,Q,...], as v2's does, and transposes the [B,H,Q,D]
+// output back; those transposes are part of the variant and of its time.
 //
-// What bounds it on the card: bytes, once there are blocks enough. H times
-// v3's blocks (80 at Q=600, TQ=64; 40 at 128; 24 at 256) with v3's taps in
-// flight: the study's first measure of v3's warp with more blocks.
+// What bounds it on the card: bytes, once there are blocks enough: 80
+// blocks at Q=600, TQ=64 (40 at 128; 24 at 256), eight taps in flight a
+// warp in bf16.
 //
 // Plain C entry point, bound with ctypes; it launches on the caller's
 // stream and returns cudaGetLastError() after the launch.

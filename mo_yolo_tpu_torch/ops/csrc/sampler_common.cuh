@@ -2,12 +2,13 @@
 // ms_deform_attn_bwd.cu and the study's ms_deform_attn_fwd_*.cu) share: the
 // level table, the conversions between the value dtype and f32 and the
 // rounding of an f32 intermediate to the value dtype, the coordinate
-// rounding, the staging of a query tile's loc and attn into shared memory,
-// one point's hat-weighted sample (v2), 16-byte row pieces (v3, v7, K1, K2,
-// nocy, v1, v45, v6, v8), the sub-group row plan, a warp's points handed
-// out by shuffles and a point's corner rows (K1, K2, nocy, v1, v45, v6,
-// v8), and K1's warp grid with its launch and C entry point for the study
-// variants that sum a row over the points (v1, v45, v6).
+// rounding, the staging of a query tile's loc and attn into shared memory
+// (v7), 16-byte row pieces (v7, K1, K2, nocy, v1-v3, v45, v6, v8), the
+// sub-group row plan, a warp's points handed out by shuffles and a point's
+// corner rows (K1, K2, nocy, v1-v3, v45, v6, v8), K1's warp grid on the
+// native or the head-major layout with its launch and C entry point for
+// the study variants that sum a row over the points (v1-v3, v45, v6), and
+// the hat-weight body that v1 and v2 share.
 
 #pragma once
 
@@ -85,35 +86,6 @@ __device__ __forceinline__ bool inside(float c, int n) {
 __device__ __forceinline__ void stage(float* dst, const float* __restrict__ src,
                                       int n) {
   for (int i = threadIdx.x; i < n; i += blockDim.x) dst[i] = src[i];
-}
-
-// One point's bilinear sample of element d of a level's map, with hat
-// weights: sum_y hat(y, cy) * (sum_x hat(x, cx) * v[cy, cx, d]) over the
-// taps c = floor and floor + 1. A tap outside the map is skipped, as it
-// matches no column on the TPU. `vl` points at the level's first row for
-// this head and `row` is the distance in elements between neighbouring
-// pixels.
-template <typename T>
-__device__ __forceinline__ float hat_sample(const T* __restrict__ vl,
-                                            long long row, int d, float x,
-                                            float y, int hl, int wl) {
-  const float x0 = floorf(x), y0 = floorf(y);
-  float s = 0.f;
-#pragma unroll
-  for (int cy = 0; cy < 2; ++cy) {
-    const float fy = y0 + (float)cy;
-    if (!inside(fy, hl)) continue;
-    float t = 0.f;
-#pragma unroll
-    for (int cx = 0; cx < 2; ++cx) {
-      const float fx = x0 + (float)cx;
-      if (!inside(fx, wl)) continue;
-      const long long s_idx = (long long)fy * wl + (long long)fx;
-      t += hat(x, fx) * to_f32(vl[s_idx * row + d]);
-    }
-    s += hat(y, fy) * t;
-  }
-  return s;
 }
 
 // 16 bytes of the value type as N floats.
@@ -386,17 +358,23 @@ __device__ __forceinline__ void load_corners(
     }
 }
 
-// ------------------------------------------ K1's warp grid (v1, v45, v6)
+// ---------------------------------- K1's warp grid (v1, v2, v3, v45, v6)
 
 #define WARP_GRID_THREADS 256  // 8 warps a block
 
+// Where a warp of the grid finds its rows. In both layouts the warp index
+// is also the row of loc, attn and out that the warp owns.
+// NATIVE: warp = (b*Q + q)*H + h; value [B,S,H,D] (row stride H*D, head
+// offset h*D), loc [B,Q,H,L,P,2], attn [B,Q,H,L,P], out [B,Q,H*D].
+// HEAD_MAJOR: warp = (b*H + h)*Q + q; value [B,H,S,D] (row stride D, base
+// (b*H + h)*S*D), loc [B,H,Q,L,P,2], attn [B,H,Q,L,P], out [B,H,Q,D].
+enum GridLayout { NATIVE, HEAD_MAJOR };
+
 // K1's grid and warp for a study variant that sums each lane's piece of
-// the row over the points: one warp per (b, q, h) on the native layout
-// (value [B,S,H,D]; loc [B,Q,H,L,P,2] and attn [B,Q,H,L,P] f32), writing
-// out [B,Q,H*D]; warp index = (b*Q + q)*H + h, also the row of loc, attn
-// and out it owns. The flat loop over the L*P points takes one point at a
-// time in each of 32/G sub-groups of G lanes, K pieces of N elements a
-// lane. For each point, every lane calls
+// the row over the points: one warp per (b, q, h) on `LAYOUT`, loc and attn
+// f32. The flat loop over the L*P points takes one point at a time in each
+// of 32/G sub-groups of G lanes, K pieces of N elements a lane. For each
+// point, every lane calls
 //   body(cn, x, y, a, v, acc)
 // cn the point's corners at its level (`Corners`; none inside for a lane
 // past the last point), x and y its pixel coordinates, a its attn weight
@@ -404,7 +382,7 @@ __device__ __forceinline__ void load_corners(
 // (zeros outside, `load_corners`) and acc the lane's f32 sums, to which
 // the body adds the point's terms. A shuffle reduction then joins the
 // sub-groups, and sub-group 0 stores the row, rounded once.
-template <typename T, bool VEC, typename Body>
+template <typename T, bool VEC, GridLayout LAYOUT = NATIVE, typename Body>
 __device__ __forceinline__ void walk_points(
     const T* __restrict__ value, const float* __restrict__ loc,
     const float* __restrict__ attn, T* __restrict__ out, int S, int Q, int H,
@@ -416,14 +394,20 @@ __device__ __forceinline__ void walk_points(
       ((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
   const int lane = threadIdx.x & 31;
   if (warp >= n_warps) return;  // whole warps leave together
+  // NATIVE's head and batch (unused in HEAD_MAJOR), before the points'
+  // loads: computed after them, in a NATIVE-only branch, they change v1's
+  // register allocation (`ptxas -v`)
   const int h = (int)(warp % H);
   const long long b = warp / H / Q;
   const int LP = L * P;
   WarpPoints pts;
   pts.load(loc + warp * LP * 2, attn + warp * LP, LP, lane);
   const int group = lane / G, n_groups = 32 / G, sl = lane & (G - 1);
-  const long long row = (long long)H * D;  // elements between rows of S
-  const T* vb = value + b * S * row + (long long)h * D;
+  // elements between rows of S, and the warp's head's first row of S
+  const long long row = LAYOUT == HEAD_MAJOR ? (long long)D
+                                             : (long long)H * D;
+  const T* vb = LAYOUT == HEAD_MAJOR ? value + warp / Q * S * row
+                                     : value + b * S * row + (long long)h * D;
 
   float acc[K][N];
 #pragma unroll
@@ -460,6 +444,38 @@ __device__ __forceinline__ void walk_points(
     }
   }
 }
+
+// v1's arithmetic for one point, a body of `walk_points` that v1 (native
+// layout) and v2 (head-major) share: hat weights relu(1 - |x - c|) of the
+// taps x0, x0 + 1 and the rows y0, y0 + 1, the point's sample summed in
+// f32, and the attention weight on that sum:
+//   acc += a * sum_y hat(y, r) * sum_x hat(x, c) * v[r, c]
+// A corner outside its level was loaded as zeros, and a hat weight is
+// finite (0 for a coordinate that is not), so nothing is tested here.
+struct HatPoint {
+  template <int K, int N>
+  __device__ __forceinline__ void operator()(const Corners&, float x,
+                                             float y, float a,
+                                             const float (&v)[4][K][N],
+                                             float (&acc)[K][N]) const {
+    const float x0 = floorf(x), y0 = floorf(y);
+    const float hx[2] = {hat(x, x0), hat(x, x0 + 1.f)};
+    const float hy[2] = {hat(y, y0), hat(y, y0 + 1.f)};
+#pragma unroll
+    for (int k = 0; k < K; ++k)
+#pragma unroll
+      for (int n = 0; n < N; ++n) {
+        float s = 0.f;
+#pragma unroll
+        for (int cy = 0; cy < 2; ++cy) {
+          const float t =
+              hx[0] * v[2 * cy][k][n] + hx[1] * v[2 * cy + 1][k][n];
+          s += hy[cy] * t;
+        }
+        acc[k][n] += a * s;  // attn on the point's sample
+      }
+  }
+};
 
 // A warp-grid kernel: value, loc, attn, out, S, Q, H, D, L, P, G, the
 // number of warps and the level table.

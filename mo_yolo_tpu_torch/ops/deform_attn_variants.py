@@ -8,8 +8,8 @@ Each computes the function of `ops.deform_attn.ms_deform_attn` (nocy on
 purpose not), with its shapes: value [B,S,H,D], loc [B,Q,H,L,P,2], attn
 [B,Q,H,L,P], output [B,Q,H·D] in the value dtype; loc and attn are held in
 f32. `TQ` is the number of queries one block of the TPU kernel owns; a
-last partial tile is padded (plain versions) or masked (the kernels that
-tile by it; v1, v4/v5, v6, v8 and nocy run one warp per (batch, query,
+last partial tile is padded (plain versions) or masked (v7's kernel, the
+one that tiles by it; v1-v6, v8 and nocy run one warp per (batch, query,
 head) and do not use it).
 
 What each studies, and what its kernel does on the card:
@@ -23,10 +23,12 @@ What each studies, and what its kernel does on the card:
 - v2 (`csrc/ms_deform_attn_fwd_v2.cu`): v1's arithmetic with heads on the
   grid and head-major operands. Its layout preparation makes value
   [B,H,S,D] and loc/attn [B,H,Q,...] and transposes the [B,H,Q,D] result
-  back; that is part of the variant and of its time.
-- v3 (`csrc/ms_deform_attn_fwd_v3.cu`): the levels fused into one flat loop
-  over the L·P·4 taps, the attention weight folded into the x weight, rows
-  read by sub-groups of a warp with 16-byte loads. No layout preparation.
+  back; that is part of the variant and of its time. Its kernel is v1's
+  grid, warp and body on the head-major layout: one warp per (b, h, q).
+- v3 (`csrc/ms_deform_attn_fwd_v3.cu`): the levels fused into one pass,
+  the attention weight folded into the x weight, f32 inside. Its kernel is
+  v1's grid and sub-groups on the native layout, each corner weighted
+  (wx·a)·wy. No layout preparation.
 - v4/v5 (`csrc/ms_deform_attn_fwd_v45.cu`): intermediates rounded to the
   value dtype, u = t·cy a packed product in it. Its kernel is v1's grid
   and sub-groups on the native layout; v4's compact y weights and v5's
@@ -38,8 +40,9 @@ What each studies, and what its kernel does on the card:
 - v6 (`csrc/ms_deform_attn_fwd_v6.cu`): only the x weights rounded, the
   point sum per level. Its kernel is the main-path kernel's arithmetic with
   that one rounding, on v1's grid and sub-groups.
-- v7 (`csrc/ms_deform_attn_fwd_v7.cu`): v3's arithmetic and sub-group warp
-  on v2's grid, with v2's layout preparation.
+- v7 (`csrc/ms_deform_attn_fwd_v7.cu`): v3's arithmetic with v2's layout
+  preparation; its kernel still runs the TPU's grid, a block per (query
+  tile, head, batch) with the tile's loc and attn in shared memory.
 - v8 (`csrc/ms_deform_attn_fwd_v8.cu`): hat weights with attn in the x
   weight, intermediates rounded to the value dtype, the point sum per y row
   before the y-sum. Its kernel runs v1's grid and sub-groups on the native
@@ -370,6 +373,19 @@ def _check_tile(loc: torch.Tensor, TQ: int, heads_in_block: bool) -> None:
                          f"{MAX_DYNAMIC_SMEM}")
 
 
+def _check_grid(value: torch.Tensor, loc: torch.Tensor, TQ: int,
+                tiled: bool, heads_in_block: bool) -> None:
+    """`tiled`: the kernel stages a tile of TQ queries (with all heads, or
+    one) in shared memory (`_check_tile`); otherwise it runs one warp per
+    (b, q, h), carries the row and the points in a warp as the main-path
+    kernel does (D <= 128, L*P <= 64) and only checks TQ."""
+    if tiled:
+        _check_tile(loc, TQ, heads_in_block)
+    else:
+        _check_tq(TQ)
+        _check_kernel(value, loc)
+
+
 def _c_launch(name: str, counter: Callable, value: torch.Tensor,
               shapes: Shapes, loc: torch.Tensor, attn: torch.Tensor,
               out: torch.Tensor, dims: Tuple[int, ...], TQ: int,
@@ -408,7 +424,7 @@ def _operands(value: torch.Tensor, shapes: Shapes, loc: torch.Tensor,
 
 def _check_rows(name: str, value: torch.Tensor, rows: str) -> None:
     """What a kernel's row loads need. "vec16": 16-byte loads, so a row is
-    a multiple of 16 bytes, at most 512, on a 16-byte boundary (v3, v7).
+    a multiple of 16 bytes, at most 512, on a 16-byte boundary (v7).
     "pairs": the study interface's rule that nocy keeps, D even and at most
     64 and value on a two-element boundary."""
     D, esize = value.shape[3], value.element_size()
@@ -433,16 +449,9 @@ def _native_layout(name: str, counter: Callable, value, shapes, loc, attn,
     finish): `launch()` runs only the kernel, `finish(out)` gives the
     [B,Q,H·D] result. `rows`: the kernel's row rule (`_check_rows`);
     `ws_floats`: an f32 workspace of that many elements, allocated for each
-    launch; `tiled`: the kernel stages a tile of TQ queries with all heads
-    in shared memory (`_check_tile`); otherwise it runs one warp per
-    (b, q, h), carries the row and the points in a warp as the main-path
-    kernel does (D <= 128, L*P <= 64) and only checks TQ."""
+    launch; `tiled`: as `_check_grid`, a tile with all heads."""
     loc, attn, dims = _operands(value, shapes, loc, attn)
-    if tiled:
-        _check_tile(loc, TQ, heads_in_block=True)
-    else:
-        _check_tq(TQ)
-        _check_kernel(value, loc)
+    _check_grid(value, loc, TQ, tiled, heads_in_block=True)
     _check_rows(name, value, rows)
     B, _, Q, H, D = dims[:5]
 
@@ -456,13 +465,14 @@ def _native_layout(name: str, counter: Callable, value, shapes, loc, attn,
 
 
 def _head_major(name: str, counter: Callable, value, shapes, loc, attn,
-                TQ: int, rows: str = ""):
-    """A variant on v2's grid: value [B,H,S,D], loc [B,H,Q,L,P,2], attn
-    [B,H,Q,L,P], each a transposed copy. Returns (launch, finish):
-    `launch()` runs only the kernel and gives [B,H,Q,D]; `finish(out)`
-    transposes it back to [B,Q,H·D]."""
+                TQ: int, rows: str = "", tiled: bool = True):
+    """A variant on head-major operands: value [B,H,S,D], loc
+    [B,H,Q,L,P,2], attn [B,H,Q,L,P], each a transposed copy. Returns
+    (launch, finish): `launch()` runs only the kernel and gives [B,H,Q,D];
+    `finish(out)` transposes it back to [B,Q,H·D]. `rows` as in
+    `_native_layout`; `tiled`: as `_check_grid`, a tile with one head."""
     loc, attn, dims = _operands(value, shapes, loc, attn)
-    _check_tile(loc, TQ, heads_in_block=False)
+    _check_grid(value, loc, TQ, tiled, heads_in_block=False)
     B, _, Q, H, D = dims[:5]
     value_hm = value.permute(0, 2, 1, 3).contiguous()
     _check_rows(name, value_hm, rows)
@@ -487,16 +497,17 @@ def prepare_v1(value, shapes, loc, attn, TQ=64):
 
 
 def prepare_v2(value, shapes, loc, attn, TQ=64):
-    """v2's layout preparation (`_head_major`)."""
+    """v2's layout preparation (`_head_major`); its kernel runs one warp
+    per (b, h, q) and tiles nothing."""
     return _head_major("ms_deform_attn_fwd_v2", fwd_v2, value, shapes, loc,
-                       attn, TQ)
+                       attn, TQ, tiled=False)
 
 
 def prepare_v3(value, shapes, loc, attn, TQ=64):
-    """v3 needs no layout preparation, but rows its 16-byte loads can take
+    """v3 needs no layout preparation and tiles nothing
     (`_native_layout`)."""
     return _native_layout("ms_deform_attn_fwd_v3", fwd_v3, value, shapes, loc,
-                          attn, TQ, rows="vec16")
+                          attn, TQ, tiled=False)
 
 
 def prepare_v45(value, shapes, loc, attn, TQ=64, compact_cy=True):
@@ -565,17 +576,18 @@ def fwd_v2(value: torch.Tensor, shapes: Shapes, loc: torch.Tensor,
            attn: torch.Tensor, TQ: int = 64) -> torch.Tensor:
     """Variant v2, its head-major transposes included. CPU tensor:
     `fwd_v2_torch`. CUDA tensor: the kernel
-    `csrc/ms_deform_attn_fwd_v2.cu`, or an exception; never the plain
-    version. `fwd_v2.launches` counts launches."""
+    `csrc/ms_deform_attn_fwd_v2.cu`, or an exception (D over 128 or L·P
+    over 64 raises); never the plain version. `fwd_v2.launches` counts
+    launches."""
     return _run(prepare_v2, fwd_v2_torch, value, shapes, loc, attn, TQ)
 
 
 def fwd_v3(value: torch.Tensor, shapes: Shapes, loc: torch.Tensor,
            attn: torch.Tensor, TQ: int = 64) -> torch.Tensor:
     """Variant v3. CPU tensor: `fwd_v3_torch`. CUDA tensor: the kernel
-    `csrc/ms_deform_attn_fwd_v3.cu`, or an exception (a row that is not a
-    multiple of 16 bytes raises); never the plain version.
-    `fwd_v3.launches` counts launches."""
+    `csrc/ms_deform_attn_fwd_v3.cu`, or an exception (D over 128 or L·P
+    over 64 raises); never the plain version. `fwd_v3.launches` counts
+    launches."""
     return _run(prepare_v3, fwd_v3_torch, value, shapes, loc, attn, TQ)
 
 
@@ -611,8 +623,8 @@ def fwd_v7(value: torch.Tensor, shapes: Shapes, loc: torch.Tensor,
            attn: torch.Tensor, TQ: int = 64) -> torch.Tensor:
     """Variant v7, its head-major transposes included. CPU tensor:
     `fwd_v7_torch`. CUDA tensor: the kernel `csrc/ms_deform_attn_fwd_v7.cu`,
-    or an exception (v3's 16-byte row rule); never the plain version.
-    `fwd_v7.launches` counts launches."""
+    or an exception (a row that is not a multiple of 16 bytes raises);
+    never the plain version. `fwd_v7.launches` counts launches."""
     return _run(prepare_v7, fwd_v7_torch, value, shapes, loc, attn, TQ)
 
 

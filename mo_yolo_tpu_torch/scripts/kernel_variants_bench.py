@@ -13,9 +13,11 @@ variant to the plain gather sampler in f32. Variants:
           main-path kernel's grid and warp (a warp per (batch, query,
           head), sub-groups with 16-byte loads)
   v2      v1 with heads on the grid and head-major operands (the
-          transposes are part of the variant and of its time)
-  v3      the levels fused into one pass, rows read by sub-groups of a warp
-          with 16-byte loads
+          transposes are part of the variant and of its time); on the
+          card v1's grid, warp and body on [B,H,S,D], a warp per (batch,
+          head, query)
+  v3      the levels fused into one pass, attn folded into the x weight;
+          on the card v1's grid and warp
   v4, v5  intermediates rounded to the value dtype, u = t*cy a packed
           product in it; on the card v1's grid and warp, one code path for
           both (v4's compact y weights and v5's are the same values)

@@ -212,6 +212,35 @@ def test_s5_kernels_run_on_the_main_path_kernels_grid(name, tpu_kernel):
     assert "What bounds it on the card: bytes" in src
 
 
+@pytest.mark.parametrize("name,tpu_kernel,layout", [
+    ("ms_deform_attn_fwd_v1", "_kernel_v1", "walk_points<T, VEC>("),
+    ("ms_deform_attn_fwd_v2", "_kernel_v2",
+     "walk_points<T, VEC, HEAD_MAJOR>("),
+    ("ms_deform_attn_fwd_v3", "_kernel_v3", "walk_points<T, VEC>(")])
+def test_s2_to_s4_kernels_run_on_the_main_path_kernels_warp_grid(
+        name, tpu_kernel, layout):
+    """S2-S4 run the main-path kernel's warp grid through `walk_points`
+    (v1 and v3 on the native layout, v2 on the head-major one), stage no
+    tile in shared memory and launch through `warp_grid_entry`; v1 and v2
+    share one hat-weight body (`HatPoint`), which neither file repeats."""
+    from mo_yolo_tpu_torch.utils.cuda_build import CSRC
+
+    def code(text):
+        return "\n".join(ln.split("//")[0] for ln in text.splitlines())
+    src = (CSRC / f"{name}.cu").read_text()
+    body = code(src)
+    assert "__shared__" not in body and "stage(" not in body
+    assert layout in body and body.count("walk_points<") == 1
+    assert f"warp_grid_entry<Fwd{name[-2:].upper()}>(" in body
+    assert ("HatPoint()" in body) == (name[-2:] != "v3")
+    assert "hat(" not in body and "hat_sample" not in body
+    header = code((CSRC / "sampler_common.cuh").read_text())
+    assert "struct HatPoint" in header and "hat_sample" not in header
+    assert f"Replaces the TPU kernel `scripts/kernel_variants_bench.py:" \
+        f"{tpu_kernel}`" in src
+    assert "What bounds it on the card: bytes" in src
+
+
 def test_shared_header_has_no_tpu_grid_skeleton():
     """No kernel runs the TPU's grid of two elements a lane any more, so
     the shared header holds neither its walk nor its two-element pieces."""
@@ -610,42 +639,49 @@ def test_variant_wrappers_raise_instead_of_falling_back(card, monkeypatch):
             fn(value.double(), shapes, loc, attn)
         with pytest.raises(ValueError):
             fn(value, shapes, loc, attn, TQ=0)
-        if fn in (dv.fwd_v1, dv.fwd_v45, dv.fwd_v6, dv.fwd_v8):
+        if fn in (dv.fwd_v1, dv.fwd_v2, dv.fwd_v3, dv.fwd_v45, dv.fwd_v6,
+                  dv.fwd_v8):
             # one warp per (b, q, h): no tile to stage, TQ is only checked
             assert torch.equal(fn(value, shapes, loc, attn, TQ=10 ** 6),
                                fn(value, shapes, loc, attn, TQ=64))
         else:
             with pytest.raises(ValueError):
                 fn(value, shapes, loc, attn, TQ=10 ** 6)
-    # a row that is no multiple of 16 bytes: v3 and v7 raise, v1 takes it
+    # a row that is no multiple of 16 bytes (24 bytes in f32): v7 raises,
+    # v1-v3 take it
     odd = torch.randn(1, value.shape[1], 2, 6, device=card)
-    for fn in (dv.fwd_v3, dv.fwd_v7):
-        with pytest.raises(ValueError, match="16 bytes"):
-            fn(odd, shapes, loc, attn)
-    assert dv.fwd_v1(odd, shapes, loc, attn).shape == (1, 10, 12)
-    # an odd D: nocy keeps the study interface's even D and raises; the
-    # kernels on the main-path kernel's grid take it
+    with pytest.raises(ValueError, match="16 bytes"):
+        dv.fwd_v7(odd, shapes, loc, attn)
+    for fn in (dv.fwd_v1, dv.fwd_v2, dv.fwd_v3):
+        assert fn(odd, shapes, loc, attn).shape == (1, 10, 12)
+    # an odd D: nocy keeps the study interface's even D and raises, v7 its
+    # 16-byte rows; the kernels on the main-path kernel's grid take it
     odd = torch.randn(1, value.shape[1], 2, 7, device=card)
     with pytest.raises(ValueError, match="even D"):
         dv.fwd_nocy(odd, shapes, loc, attn)
-    for fn in (dv.fwd_v45, dv.fwd_v6, dv.fwd_v8):
+    with pytest.raises(ValueError, match="16 bytes"):
+        dv.fwd_v7(odd, shapes, loc, attn)
+    for fn in (dv.fwd_v1, dv.fwd_v2, dv.fwd_v3, dv.fwd_v45, dv.fwd_v6,
+               dv.fwd_v8):
         assert fn(odd, shapes, loc, attn).shape == (1, 10, 14)
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("tq", [64, 128, 256])
 @pytest.mark.parametrize("levels", ["1536x800", "small"])
-@pytest.mark.parametrize("variant", ["v1", "v4", "v5", "v6", "v8"])
-def test_v1_and_v8_kernels_on_clustered_points_on_card(card, monkeypatch,
+@pytest.mark.parametrize("variant", ["v1", "v2", "v3", "v4", "v5", "v6",
+                                     "v8"])
+def test_warp_grid_kernels_on_clustered_points_on_card(card, monkeypatch,
                                                        variant, levels, tq):
-    """The kernels on the main-path kernel's grid (v1, v4/v5, v6, v8) with
-    every point in [0.45, 0.55] at the study's 1536x800 levels and at the
-    small ones (Q=600, H=8, D=32): at 6x8 every point of a level touches
-    the same two rows, so v8's row groups have up to 2P members. f32 within
-    1e-5 of the plain sampler and of the variant's own plain version; bf16:
-    v1 within the 1e-2 rule of both, the others (which round where the TPU
-    kernels do) within one bf16 ulp at the output's scale of their own
-    plain version on the same bf16 operands. One launch a call."""
+    """The kernels on the main-path kernel's grid (v1-v3, v4/v5, v6, v8)
+    with every point in [0.45, 0.55] at the study's 1536x800 levels and at
+    the small ones (Q=600, H=8, D=32): at 6x8 every point of a level
+    touches the same two rows, so v8's row groups have up to 2P members.
+    f32 within 1e-5 of the plain sampler and of the variant's own plain
+    version; bf16: v1-v3 (f32 inside) within the 1e-2 rule of both, the
+    others (which round where the TPU kernels do) within one bf16 ulp at
+    the output's scale of their own plain version on the same bf16
+    operands. One launch a call."""
     import mo_yolo_tpu_torch.ops.deform_attn_variants as dv
     from mo_yolo_tpu_torch.ops.deform_attn import ms_deform_attn_torch
     from mo_yolo_tpu_torch.scripts.kernel_variants_bench import level_shapes
@@ -671,7 +707,7 @@ def test_v1_and_v8_kernels_on_clustered_points_on_card(card, monkeypatch,
     torch.testing.assert_close(got, want, atol=F32_ATOL, rtol=0)
     torch.testing.assert_close(got, own, atol=F32_ATOL, rtol=0)
     assert got_b.dtype == torch.bfloat16
-    if variant == "v1":
+    if variant in F32_INSIDE:
         for ref in (want_b, own_b):
             torch.testing.assert_close(got_b.float(), ref, atol=BF16_ATOL,
                                        rtol=BF16_RTOL)
@@ -682,9 +718,10 @@ def test_v1_and_v8_kernels_on_clustered_points_on_card(card, monkeypatch,
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("variant", ["v1", "v4", "v5", "v6", "v8"])
-def test_v1_and_v8_kernels_take_the_main_path_kernels_rows(card, variant):
-    """v1, v4/v5, v6 and v8 carry a row and a warp's points as the
+@pytest.mark.parametrize("variant", ["v1", "v2", "v3", "v4", "v5", "v6",
+                                     "v8"])
+def test_warp_grid_kernels_take_the_main_path_kernels_rows(card, variant):
+    """v1-v3, v4/v5, v6 and v8 carry a row and a warp's points as the
     main-path kernel does: D above 128 raises before any launch, and so
     does L*P above 64 (v8 takes at most 8 points, so at most 64 at 8
     levels)."""

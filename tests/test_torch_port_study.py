@@ -59,6 +59,9 @@ VARIANT_FUNCS = {
 }
 # the variants that keep the TPU kernels' rounding points in the value dtype
 ROUNDING_VARIANTS = ["v4", "v5", "nocy", "v6", "v7", "v8"]
+# S2-S4: their kernels compute in f32 inside, but their plain versions keep
+# the TPU kernels' casts too
+F32_INSIDE = ["v1", "v2", "v3"]
 BF16_ULP = 2.0 ** -7
 
 
@@ -105,7 +108,7 @@ def test_variant_plain_versions_match_pallas_interpret(jax_variants, variant,
                                    atol=ATOL, rtol=0)
 
 
-@pytest.mark.parametrize("variant", ROUNDING_VARIANTS)
+@pytest.mark.parametrize("variant", ROUNDING_VARIANTS + F32_INSIDE)
 def test_variant_plain_versions_match_pallas_interpret_in_bf16(jax_variants,
                                                                variant):
     """The rounding points: in bf16 the plain version and the interpreted
@@ -113,7 +116,8 @@ def test_variant_plain_versions_match_pallas_interpret_in_bf16(jax_variants,
     ulp at the output's scale (2^-7 of its largest magnitude: f32 sums in
     another order can move a rounding by one ulp; measured 0 here), and
     their mean difference is under a tenth of the TPU kernel's own mean
-    error against the f32 sampler."""
+    error against the f32 sampler. That holds for the plain versions of
+    v1-v3 as well, whose kernels compute in f32 inside."""
     from mo_yolo_tpu_torch.ops.deform_attn import ms_deform_attn_torch
     value, shapes, loc, attn = rand_sampler_inputs(seed=12)
     vb = jnp.asarray(value).astype(jnp.bfloat16)
@@ -133,21 +137,31 @@ def test_variant_plain_versions_match_pallas_interpret_in_bf16(jax_variants,
 @pytest.mark.parametrize("levels", [((12, 16), (6, 8), (3, 4)),
                                     ((100, 192), (50, 96), (25, 48))],
                          ids=["small", "1536x800"])
+@pytest.mark.parametrize("variant", ["v2", "v3", "v8"])
 def test_v8_plain_version_on_clustered_points_matches_pallas_interpret(
-        jax_variants, levels):
+        jax_variants, variant, levels):
     """Every point in [0.45, 0.55] (at the small levels' 6x8 every point of
     a level touches the same two rows, so a row sums the u of up to 4
-    points before its rounding): in bf16 the plain version of v8 and the
-    interpreted TPU kernel agree to one bf16 ulp at the output's scale."""
+    points before its rounding): in bf16 the plain versions of v2, v3 and
+    v8 and the interpreted TPU kernels agree to one bf16 ulp at the
+    output's scale; v2 and v3, whose kernels run on K1's warp grid, also
+    within 1e-5 in f32."""
     value, shapes, loc, attn = rand_sampler_inputs(Q=16, shapes=levels,
                                                    seed=13)
     loc = np.random.default_rng(13).uniform(0.45, 0.55, loc.shape).astype(
         np.float32)
+    if variant != "v8":
+        want = _interpret(jax_variants, variant, value, shapes, loc, attn, 16)
+        plain = _port(variant)(torch.from_numpy(value), shapes,
+                               torch.from_numpy(loc), torch.from_numpy(attn),
+                               TQ=16)
+        np.testing.assert_allclose(plain.numpy(), want, atol=ATOL, rtol=0)
     vb = jnp.asarray(value).astype(jnp.bfloat16)
-    want = _interpret(jax_variants, "v8", vb, shapes, loc, attn, 16)
+    want = _interpret(jax_variants, variant, vb, shapes, loc, attn, 16)
     vt = torch.from_numpy(np.array(vb.astype(jnp.float32)))
-    plain = _port("v8")(vt.to(torch.bfloat16), shapes, torch.from_numpy(loc),
-                        torch.from_numpy(attn), TQ=16)
+    plain = _port(variant)(vt.to(torch.bfloat16), shapes,
+                           torch.from_numpy(loc), torch.from_numpy(attn),
+                           TQ=16)
     assert plain.dtype == torch.bfloat16 and plain.shape == (1, 16, 16)
     diff = np.abs(plain.float().numpy() - want)
     assert diff.max() <= BF16_ULP * max(1.0, float(np.abs(want).max()))
@@ -192,8 +206,8 @@ def test_nocy_plain_version_on_edge_cases_matches_pallas_interpret(
 def test_variant_wrappers_validate_before_launching(name):
     """What the kernels do not take raises before anything is built or
     launched; nothing falls back: `prepare_*` refuses a CPU tensor, a tile
-    too large for shared memory raises (the kernels that stage one: v2, v3,
-    v7 and, by the study interface's rule, nocy), and so does a plain
+    too large for shared memory raises (the kernel that stages one, v7,
+    and, by the study interface's rule, nocy), and so does a plain
     version's tile of no queries."""
     from mo_yolo_tpu_torch.ops import deform_attn_variants as dv
     value, shapes, loc, attn = (torch.from_numpy(a) if isinstance(
@@ -211,9 +225,9 @@ def test_variant_wrappers_validate_before_launching(name):
 
 def test_variant_row_rules():
     """The row rules the wrappers hold: the study interface's even D of
-    at most 64 (nocy) and 16-byte rows (v3, v7); the kernels on the
-    main-path kernel's grid (v1, v45, v6, v8) take any D up to 128 with no
-    row rule; v8 takes at most 8 points."""
+    at most 64 (nocy) and 16-byte rows (v7, which still runs the TPU's
+    grid); the kernels on the main-path kernel's grid (v1-v3, v45, v6, v8)
+    take any D up to 128 with no row rule; v8 takes at most 8 points."""
     from mo_yolo_tpu_torch.ops import deform_attn_variants as dv
     for D, ok in ((8, True), (32, True), (64, True), (6, True), (7, False),
                   (66, False)):
