@@ -9,7 +9,7 @@ Phases, each printed as one JSON line:
 2. build: compiles every kernel of the paths from
    `mo_yolo_tpu_torch/ops/csrc` with nvcc (one process per source, all
    started together) and reports each instantiation's registers and spills
-   from `ptxas -v`, holding S3-S5's kernels under K1's 112-register warning
+   from `ptxas -v`, holding S3-S6's kernels under K1's 112-register warning
    with at most 16 bytes of spill;
 3. kernel: holds K1 (the sampler) against its plain PyTorch version at the
    streaming path's shapes, at a clustered case (728 queries, every point
@@ -17,8 +17,10 @@ Phases, each printed as one JSON line:
 4. kernel_bwd: the same for K2 (the sampler's gradient) at the training
    path's shapes (728 queries: 128 denoising, 300 track slots, 300 detect),
    the clustered case and edge cases, in f32 and bf16; holds K2's
-   intermediates (each corner slot's d_value row, the rows' counts) to the
-   plain rows form exactly, and times that form beside the plain gradient;
+   intermediates (each corner slot's d_value row, the rows' counts and
+   starts, the sorted slots) to the plain rows form exactly, checks that
+   three calls and a CUDA-graph replay give the same gradient bit for bit,
+   and times the plain rows form beside the plain gradient;
 5. greedy: holds the greedy-suppression kernel (`greedy_keep`) exactly to
    its plain version at 4 streams of 600 (a frame's duplicates, random
    conflicts, a chain of depth 600, nothing valid, conflicts in both
@@ -26,10 +28,11 @@ Phases, each printed as one JSON line:
 6. kernel_variants: holds the study's kernels S2-S7 (`fwd_v1`, `fwd_v2`,
    `fwd_v3`, `fwd_v45` as v4 and v5, `fwd_nocy`, `fwd_v6`, `fwd_v7`,
    `fwd_v8`) against the plain sampler and their own plain versions at the
-   study's inputs and at edge cases, with 64 and 128 queries a block (and
-   256 for v7 and v8), the kernels on the main-path kernel's grid (v1-v3,
-   v4, v5, v6, v8) also on clustered points (every point in [0.45, 0.55])
-   at 64, 128 and 256, v4 equal to v5 bit for bit in every case, and S1
+   study's inputs and at edge cases (odd D among them), with 64 and 128
+   queries a block (and 256 for v7 and v8), the kernels on the main-path
+   kernel's grid (all but nocy) also on clustered points (every point in
+   [0.45, 0.55]) at 64, 128 and 256, v4 equal to v5 bit for bit in every
+   case, and S1
    (`take_along_axis`) against `torch.gather`, exactly, also in its scalar
    forms; times each;
 7. study: the sampler study through its entry points
@@ -103,7 +106,8 @@ CLIP_LEN, TRAIN_STEPS = 5, 3
 # held under it, with at most this many bytes of spill
 REGISTER_WARNING, SPILL_LIMIT = 112, 16
 REGISTER_HELD = ("ms_deform_attn_fwd_v2", "ms_deform_attn_fwd_v3",
-                 "ms_deform_attn_fwd_v45", "ms_deform_attn_fwd_v6")
+                 "ms_deform_attn_fwd_v45", "ms_deform_attn_fwd_v6",
+                 "ms_deform_attn_fwd_v7")
 
 
 class CheckFailed(Exception):
@@ -196,9 +200,10 @@ def bound_bwd(value, levels, loc, attn):
     slot's key and aw (int32/f32); the counts and cursors are zeroed, the
     counts summed by tile and scanned into start; place reads key and aw
     and writes a 16-byte record (slot, row, aw) for each in-bounds slot;
-    reduce reads the records and g again; every d_value row is written
-    once (the carries of rows that cross reduce blocks are left out: at
-    most one per block of 512 slots)."""
+    sort reads the records and writes them again, each row's in slot
+    order; reduce reads the records and g again; every d_value row is
+    written once (the carries of rows that cross reduce blocks are left
+    out: at most one per block of 512 slots)."""
     b, S, h, d = value.shape
     q, L, P = loc.shape[1], loc.shape[3], loc.shape[4]
     rows, n_corner = touched(value, levels, loc)
@@ -209,7 +214,7 @@ def bound_bwd(value, levels, loc, attn):
     n_slots, n_rows = b * q * h * L * P * 4, b * S * h
     design = (rows * d * esize + 2 * g + meta + value.numel() * esize
               + n_slots * 4 * (2 + 2)        # key/aw written, then read
-              + n_corner * 16 * 2            # records written, then read
+              + n_corner * 16 * 4            # records placed, sorted
               + n_rows * 4 * 5)              # counts, cursors zeroed; the
                                              # counts summed, scanned; start
     return _roofline(nbytes, 4 * n_corner * d,
@@ -269,27 +274,6 @@ def device_time_ms(fn, iters=20):
 
     from mo_yolo_tpu_torch.scripts.timing import device_ms
     return device_ms(fn, iters, torch.device("cuda"))
-
-
-def kernel_stages_ms(fn, n=10):
-    """Device ms per call of each kernel (and memset) `fn` launches, from
-    torch.profiler over n calls: where a multi-stage kernel's time goes."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    out = {}
-    for e in prof.key_averages():
-        us = getattr(e, "self_device_time_total",
-                     getattr(e, "self_cuda_time_total", 0.0))
-        if us > 0:
-            out[e.key.split("<")[0].split("(")[0].replace("void ", "")] = \
-                us / n / 1e3
-    return out
 
 
 def phase_kernel():
@@ -378,15 +362,18 @@ def phase_kernel_bwd():
 
     Tolerances, each relative to the largest magnitude of the tensor:
     f32 d_loc and d_attn 1e-5 (another summation order over D); f32
-    d_value 1e-4 (a row's corners are summed in the order integer atomics
-    gave them their slots, which changes from run to run); bf16 1e-2 (one
-    bf16 rounding of d_value and of the inputs' products). The
-    intermediates (each corner slot's key, the rows' counts) exactly."""
+    d_value 1e-4 (a row's corners are summed in another order than the
+    plain version's `index_add_`); bf16 1e-2 (one bf16 rounding of d_value
+    and of the inputs' products). The intermediates (each corner slot's
+    key, the rows' counts and starts, the slots in row and slot order)
+    exactly, and the gradient of three calls and of a CUDA-graph replay on
+    the same inputs bit for bit."""
     import torch
 
     from mo_yolo_tpu_torch.ops.deform_attn import (
         _launch_bwd, ms_deform_attn_backward, ms_deform_attn_backward_rows_torch,
         ms_deform_attn_backward_torch)
+    from mo_yolo_tpu_torch.scripts.k2_bench import stages_ms
     torch.backends.cuda.matmul.allow_tf32 = False
     small = ((12, 16), (6, 8), (3, 4))
     cases = [(f"main_{name}", dict(levels=levels, q=Q_TRAIN))
@@ -446,13 +433,44 @@ def phase_kernel_bwd():
         for k in ("key", "counts", "start"):
             check(torch.equal(rows[k], want[k]),
                   f"K2 {name}: {k} differs from the plain rows form")
-        check(torch.equal(rows["ids"].long().sort().values,
-                          want["ids"].sort().values),
-              f"K2 {name}: ids are not the in-bounds slots")
+        check(torch.equal(rows["ids"].long(), want["ids"]),
+              f"K2 {name}: ids are not the in-bounds slots in row and slot "
+              f"order")
         rows_checks[name] = {"slots": rows["key"].numel(),
                              "in_bounds": int(want["start"][-1]),
                              "longest_row": int(want["counts"].max()),
                              "exact": ["key", "counts", "start", "ids"]}
+    # the same inputs give the same gradient, bit for bit: three calls and
+    # a replay of one captured in a CUDA graph
+    same = {}
+    for name, kw in [(f"{spread}_{size}", dict(levels=levels, q=Q_TRAIN,
+                                              loc_range=loc_range))
+                     for size, levels in LEVELS.items()
+                     for spread, loc_range in (("uniform", (-0.05, 1.05)),
+                                               ("clustered", CLUSTERED))] + \
+            [("batch2", dict(levels=LEVELS["640x640"], b=2, q=Q_TRAIN))]:
+        for dt in (torch.float32, torch.bfloat16):
+            value, levels, loc, attn = sampler_inputs(dtype=dt, seed=2, **kw)
+            g = torch.randn(value.shape[0], loc.shape[1],
+                            value.shape[2] * value.shape[3],
+                            generator=torch.Generator().manual_seed(9)
+                            ).to(value.device, dt)
+            outs = [ms_deform_attn_backward(value, levels, loc, attn, g)
+                    for _ in range(3)]
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                replayed = ms_deform_attn_backward(value, levels, loc, attn,
+                                                   g)
+            graph.replay()
+            torch.cuda.synchronize()
+            for got in outs[1:] + [replayed]:
+                for k, a, b in zip(("d_value", "d_loc", "d_attn"), got,
+                                   outs[0]):
+                    check(torch.equal(a, b),
+                          f"K2 {name} {dt}: {k} differs between calls on "
+                          f"the same inputs")
+            same[f"{name}/{str(dt)[6:]}"] = "bit for bit, 3 calls + replay"
+            del graph
     timing = {}
     for name, levels in LEVELS.items():
         for dt, label, kw in ((torch.bfloat16, "bfloat16", {}),
@@ -468,7 +486,7 @@ def phase_kernel_bwd():
                 value, levels_, loc, attn, g), iters=10, warmup=2)
             plain_rows = time_ms(lambda: ms_deform_attn_backward_rows_torch(
                 value, levels_, loc, attn, g), iters=10, warmup=2)
-            stages = (kernel_stages_ms(lambda: ms_deform_attn_backward(
+            stages = (stages_ms(lambda: ms_deform_attn_backward(
                 value, levels_, loc, attn, g))
                 if dt == torch.bfloat16 else None)
             timing[f"{name}/{label}"] = {
@@ -478,7 +496,8 @@ def phase_kernel_bwd():
                     lambda: ms_deform_attn_backward(value, levels_, loc,
                                                     attn, g)),
                 **bound_bwd(value, levels_, loc, attn)}
-    emit("kernel_bwd", checks=results, rows=rows_checks, timing=timing)
+    emit("kernel_bwd", checks=results, rows=rows_checks, same=same,
+         timing=timing)
     main = timing["1536x800/bfloat16"]
     return {**main, "max_abs_err":
             results["main_1536x800/bfloat16"]["max_abs_err"]}
@@ -781,7 +800,8 @@ def phase_kernel_variants(device="cuda"):
             ("batch2", dict(levels=LEVELS["640x640"], b=2)),
             ("q77_h3", dict(levels=small, q=77, h=3)),
             ("d8", dict(levels=small, q=70, h=2, d=8)),
-            ("d40", dict(levels=small, q=33, h=2, d=40))):
+            ("d40", dict(levels=small, q=33, h=2, d=40)),
+            ("d6", dict(levels=small, q=70, h=2, d=6))):
         cases.append((case, lambda dt, kw=kw: sampler_inputs(
             dtype=dt, device=device, **kw)))
     # the kernels on K1's grid where the points of a level land on a few
@@ -799,10 +819,14 @@ def phase_kernel_variants(device="cuda"):
     def worst(label, key, err):
         maxima[label][key] = max(maxima[label].get(key, 0.0), err)
 
-    # (case, inputs, variants, queries a block: None for each variant's)
+    # (case, inputs, variants, queries a block: None for each variant's);
+    # nocy keeps the study interface's even D and is held to its own plain
+    # version elsewhere
+    grid = tuple(v for v in variants if v != "nocy")
     runs = [(c, m, tuple(variants), None) for c, m in cases] + \
-        [(c, m, ("v1", "v2", "v3", "v4", "v5", "v6", "v8"), (64, 128, 256))
-         for c, m in clustered]
+        [("d7", lambda dt: sampler_inputs(small, q=70, h=2, d=7, dtype=dt,
+                                          device=device), grid, None)] + \
+        [(c, m, grid, (64, 128, 256)) for c, m in clustered]
     for case, make, labels, case_tqs in runs:
         for dt in (torch.float32, torch.bfloat16):
             value, levels, loc, attn = make(dt)

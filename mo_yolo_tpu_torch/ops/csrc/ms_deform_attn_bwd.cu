@@ -10,15 +10,18 @@
 //                       bilinear weights against attn * <g, v_corner>
 //
 // with no contribution from corners outside the map. The TPU kernel runs its
-// grid in order and carries d_value across query tiles in VMEM. On Hopper
-// the blocks run in no order, and nothing carries from one to the next.
+// grid in order and carries d_value across query tiles in VMEM, so it sums
+// a row's terms in a fixed sequence. On Hopper the blocks run in no order,
+// and nothing carries from one to the next.
 //
 // What bounds it on the card: bytes. The function reads the value rows the
 // corners touch, g, loc and attn once and writes d_value [B,S,H,D] (12.9 MB
 // in bf16 at 1536x800), d_loc and d_attn once. The design writes every
 // d_value row exactly once, in the output dtype, with no float atomics, no
 // zeroed f32 buffer and no cast pass. It sorts the corners by the d_value
-// row they land on and sums each row's corners in one place:
+// row they land on and, within a row, by slot, and sums each row's corners
+// in one place in that order, so d_value is the same bit for bit in every
+// run:
 //
 // 1. dots: one warp per (b,q,h) on K1's grid and with K1's warp (sub-groups
 //    of G lanes carry a corner row with 16-byte loads, the four corners of
@@ -33,29 +36,38 @@
 //    here, without reading g, by the block's threads side by side.
 // 3. place: each in-bounds slot c takes a place in its row's list from an
 //    integer atomic on the row's cursor and writes there a 16-byte record
-//    (c, key[c], aw[c]): the lists in row order, ready to be read whole.
-// 4. reduce: the sorted slots are cut into chunks of CHUNK, a sub-group per
+//    (c, key[c], aw[c]): the lists in row order, each in the order the
+//    atomics handed out places, which changes from run to run.
+// 4. sort: each list is put in ascending slot order. A point's four corners
+//    are four pixels, so a row (b, s, h) holds at most one corner of each
+//    point (q, p) of its level: at most Q*P records, with distinct
+//    u = q*P + p, which orders them as c does. A block takes a tile of
+//    SORT_TILE places. A record of a row of at most SHORT_ROW records is
+//    ranked by counting the smaller slots of its row; a longer row
+//    (clustered corners make rows of hundreds) is taken whole by the block
+//    where its list starts: each record sets bit u of the row's bit set in
+//    shared memory, and its rank is the bits before its own. Each record
+//    is written once at its rank; nothing depends on the order threads run.
+// 5. reduce: the sorted slots are cut into chunks of CHUNK, a sub-group per
 //    chunk, so the work is even however the corners cluster (training
 //    queries gather on a few objects, and a row can collect hundreds of
 //    corners). A sub-group reads its chunk's records in one round and
-//    sums g[c / (L*P*4)] * aw[c] in
-//    f32 while the row stays the same, and writes a row that lies wholly in
-//    the chunk once, in the output dtype, with 16-byte stores. The pieces
-//    of a row that crosses chunk edges meet in the block's shared memory,
-//    where the sub-group that holds the row's start sums them in chunk
-//    order; only a row that runs past the block's chunks leaves an f32
-//    carry.
-// 5. fixup: the block where such a row starts adds the carries of the
-//    blocks it runs into (a block sums 1,024 slots for a bf16 row at D=32,
-//    so even a row of thousands of corners spans a few) and writes it.
+//    sums g[c / (L*P*4)] * aw[c] in f32 while the row stays the same, and
+//    writes a row that lies wholly in the chunk once, in the output dtype,
+//    with 16-byte stores. The pieces of a row that crosses chunk edges
+//    meet in the block's shared memory, where the sub-group that holds the
+//    row's start sums them in chunk order; only a row that runs past the
+//    block's chunks leaves an f32 carry.
+// 6. fixup: the block where such a row starts adds the carries of the
+//    blocks it runs into, in block order (a block sums 1,024 slots for a
+//    bf16 row at D=32, so even a row of thousands of corners spans a few),
+//    and writes it.
 //
 // Same-address atomics serialize in L2, so corners that pile onto a few
 // rows slow dots and place (PERF.md has the numbers; counting a block's
 // rows in shared memory first fixed that, but cost more on spread-out
 // corners than it saved on clustered ones, and was left out).
 //
-// Slot order within a row comes from the atomics, so f32 d_value sums in an
-// order that changes from run to run; d_loc and d_attn do not.
 // A row that is not a multiple of 16 bytes, or not on a 16-byte boundary,
 // takes the same kernels with one element a lane piece.
 //
@@ -274,22 +286,191 @@ __global__ void __launch_bounds__(THREADS)
 
 // -------------------------------------------------------------- 3. place
 
-// rec [total] int4 (slot c, row, aw as bits, 0), each row's list at
+// placed [total] int4 (slot c, row, aw as bits, 0), each row's list at
 // start[row], in the order the cursor's atomics hand out places.
 __global__ void __launch_bounds__(THREADS)
     bwd_place_kernel(const int* __restrict__ key,
                      const float* __restrict__ aw,
                      const int* __restrict__ start, int* __restrict__ cursor,
-                     int4* __restrict__ rec, long long n_slots) {
+                     int4* __restrict__ placed, long long n_slots) {
   const long long c = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (c >= n_slots) return;
   const int r = key[c];
   if (r >= 0)
-    rec[start[r] + atomicAdd(cursor + r, 1)] =
+    placed[start[r] + atomicAdd(cursor + r, 1)] =
         make_int4((int)c, r, __float_as_int(aw[c]), 0);
 }
 
-// ------------------------------------------------------------- 4. reduce
+// --------------------------------------------------------------- 4. sort
+
+#define SORT_TILE 512    // list places a sort block takes
+#define SORT_PER (SORT_TILE / THREADS)  // places a thread takes
+#define SHORT_ROW 32     // rows of at most this many records are ranked by
+                         // comparisons, longer ones by a bit set
+#define LONG_PER 4       // a long row's records a thread takes a trip
+#define MAX_ROW_POINTS 4096  // Q*P: the bits of a long row's set
+#define ROW_WORDS (MAX_ROW_POINTS / 32)
+// the long rows whose lists can start in one tile
+#define LONG_ROWS ((SORT_TILE - 1) / (SHORT_ROW + 1) + 1)
+
+// u = q*P + p of slot c = (((b*Q + q)*H + h)*L*P + l*P + p)*4 + corner:
+// distinct among a row's records, and ordered as their slots.
+__device__ __forceinline__ int point_of(int c, int Q, int H, int P, int LP) {
+  const int pt = c >> 2;
+  const int warp = pt / LP;
+  return (warp / H) % Q * P + (pt - warp * LP) % P;
+}
+
+// placed [n_slots] records, the first total of them each row's list at
+// start[row] in any order; rec the same records with each list in
+// ascending slot order. Block t takes the places [t, t + 1) * SORT_TILE: a
+// record of a short row is ranked by whichever block holds it, against the
+// slots of the places within SHORT_ROW of the tile, staged in shared
+// memory; a long row by the block where its list starts, all of it.
+__global__ void __launch_bounds__(THREADS)
+    bwd_sort_kernel(const int4* __restrict__ placed,
+                    const int* __restrict__ start, int n_rows, int n_slots,
+                    int Q, int H, int P, int LP, int4* __restrict__ rec) {
+  static_assert(SORT_PER * THREADS == SORT_TILE, "whole places a thread");
+  static_assert(LONG_ROWS <= 64, "the row offsets' scan holds two a lane");
+  static_assert(ROW_WORDS == 128, "a row's set is four words a lane");
+  __shared__ uint4 s_bits[LONG_ROWS][ROW_WORDS / 4];
+  __shared__ unsigned short s_before[LONG_ROWS][ROW_WORDS];  // bits before
+  __shared__ int s_first[LONG_ROWS], s_n[LONG_ROWS], s_off[LONG_ROWS + 1];
+  __shared__ int s_n_long;
+  // the slots of places [tile - SHORT_ROW, tile + SORT_TILE + SHORT_ROW)
+  __shared__ int s_slot[SORT_TILE + 2 * SHORT_ROW];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int tile = blockIdx.x * SORT_TILE;
+  // the total, the thread's records and the tile's edges, all in flight
+  const int total = start[n_rows];
+  int4 r[SORT_PER];
+#pragma unroll
+  for (int k = 0; k < SORT_PER; ++k) {
+    const int i = tile + threadIdx.x + k * THREADS;
+    r[k] = i < n_slots ? placed[i] : make_int4(0, -1, 0, 0);
+    s_slot[SHORT_ROW + threadIdx.x + k * THREADS] = r[k].x;
+  }
+  if (threadIdx.x < 2 * SHORT_ROW) {
+    const int j = threadIdx.x < SHORT_ROW ? threadIdx.x
+                                          : SORT_TILE + threadIdx.x;
+    const int i = tile - SHORT_ROW + j;
+    s_slot[j] = i >= 0 && i < n_slots ? placed[i].x : 0;
+  }
+  if (tile >= total) return;  // the same in the whole block
+  if (threadIdx.x == 0) s_n_long = 0;
+  int a[SORT_PER], n[SORT_PER], rank[SORT_PER], most = 0;
+#pragma unroll
+  for (int k = 0; k < SORT_PER; ++k) {
+    if (tile + (int)threadIdx.x + k * THREADS >= total) r[k].y = -1;
+    a[k] = r[k].y >= 0 ? start[r[k].y] : 0;
+    n[k] = r[k].y >= 0 ? start[r[k].y + 1] - a[k] : 0;
+    rank[k] = 0;
+    if (n[k] <= SHORT_ROW) most = max(most, n[k]);
+  }
+  __syncthreads();  // s_slot and s_n_long are set
+  // a short row's record: its rank is the number of smaller slots in its
+  // row, which lies within SHORT_ROW places of the record
+  for (int j = 0; j < most; ++j)
+#pragma unroll
+    for (int k = 0; k < SORT_PER; ++k)
+      if (j < n[k] && n[k] <= SHORT_ROW)
+        rank[k] += s_slot[a[k] - tile + SHORT_ROW + j] < r[k].x;
+  // long rows go to the block's list, in any order: each is sorted alone
+#pragma unroll
+  for (int k = 0; k < SORT_PER; ++k) {
+    if (n[k] <= SHORT_ROW) {
+      if (r[k].y >= 0) rec[a[k] + rank[k]] = r[k];
+    } else if (tile + (int)threadIdx.x + k * THREADS == a[k]) {
+      const int s = atomicAdd(&s_n_long, 1);
+      s_first[s] = a[k];
+      s_n[s] = n[k];
+    }
+  }
+  __syncthreads();
+  const int n_long = s_n_long;
+  if (n_long == 0) return;
+  for (int w = threadIdx.x; w < n_long * (ROW_WORDS / 4); w += THREADS)
+    s_bits[w / (ROW_WORDS / 4)][w % (ROW_WORDS / 4)] = make_uint4(0, 0, 0, 0);
+  if (warp == 0) {  // the long rows' records laid end to end
+    const int n0 = 2 * lane < n_long ? s_n[2 * lane] : 0;
+    const int n1 = 2 * lane + 1 < n_long ? s_n[2 * lane + 1] : 0;
+    const int incl = warp_inclusive_scan(n0 + n1, lane);
+    if (2 * lane < n_long) s_off[2 * lane + 1] = incl - n1;
+    if (2 * lane + 1 < n_long) s_off[2 * lane + 2] = incl;
+    if (lane == 0) s_off[0] = 0;
+  }
+  __syncthreads();
+  const int n_flat = s_off[n_long];
+  unsigned* bits = &s_bits[0][0].x;  // row s's words at s * ROW_WORDS
+  // the place of flat record f, and its row in the list; s only grows
+  // along a thread's records
+  auto locate = [&](int f, int& s) {
+    while (f >= s_off[s + 1]) ++s;
+    return s_first[s] + f - s_off[s];
+  };
+  // each long row's points as bits of its set, LONG_PER records a trip
+  for (int f0 = threadIdx.x, s = 0; f0 < n_flat;
+       f0 += LONG_PER * THREADS) {
+    int at[LONG_PER], row[LONG_PER], c[LONG_PER];
+#pragma unroll
+    for (int k = 0; k < LONG_PER; ++k) {
+      const int f = f0 + k * THREADS;
+      at[k] = f < n_flat ? locate(f, s) : -1;
+      row[k] = s;
+    }
+#pragma unroll
+    for (int k = 0; k < LONG_PER; ++k)
+      c[k] = at[k] >= 0 ? placed[at[k]].x : 0;
+#pragma unroll
+    for (int k = 0; k < LONG_PER; ++k) {
+      if (at[k] < 0) continue;
+      const int u = point_of(c[k], Q, H, P, LP);
+      atomicOr(bits + row[k] * ROW_WORDS + (u >> 5), 1u << (u & 31));
+    }
+  }
+  __syncthreads();
+  // the bits before each word of a row's set: a warp a row, four words a
+  // lane
+  for (int s = warp; s < n_long; s += THREADS / 32) {
+    const uint4 w = s_bits[s][lane];
+    const int c0 = __popc(w.x), c1 = __popc(w.y), c2 = __popc(w.z);
+    const int sum = c0 + c1 + c2 + __popc(w.w);
+    const int before = warp_inclusive_scan(sum, lane) - sum;
+    unsigned short* out = &s_before[s][lane * 4];
+    out[0] = (unsigned short)before;
+    out[1] = (unsigned short)(before + c0);
+    out[2] = (unsigned short)(before + c0 + c1);
+    out[3] = (unsigned short)(before + c0 + c1 + c2);
+  }
+  __syncthreads();
+  // a record's rank: the bits of its row's set below its own
+  for (int f0 = threadIdx.x, s = 0; f0 < n_flat;
+       f0 += LONG_PER * THREADS) {
+    int at[LONG_PER], row[LONG_PER];
+    int4 q[LONG_PER];
+#pragma unroll
+    for (int k = 0; k < LONG_PER; ++k) {
+      const int f = f0 + k * THREADS;
+      at[k] = f < n_flat ? locate(f, s) : -1;
+      row[k] = s;
+    }
+#pragma unroll
+    for (int k = 0; k < LONG_PER; ++k)
+      if (at[k] >= 0) q[k] = placed[at[k]];
+#pragma unroll
+    for (int k = 0; k < LONG_PER; ++k) {
+      if (at[k] < 0) continue;
+      const int u = point_of(q[k].x, Q, H, P, LP);
+      const int w = u >> 5;
+      rec[s_first[row[k]] + s_before[row[k]][w] +
+          __popc(bits[row[k] * ROW_WORDS + w] & ((1u << (u & 31)) - 1u))] =
+          q[k];
+    }
+  }
+}
+
+// ------------------------------------------------------------- 5. reduce
 
 // Pieces of a sub-group's f32 partial row, to p (shared memory).
 template <int K, int N>
@@ -333,7 +514,7 @@ __device__ __forceinline__ void put_row(T* p,
 // SG * D <= 256 * N * K floats: the pieces a block's sub-groups keep
 #define SMEM_ROWS 2048
 
-// 5. fixup, for reduce block blk, by a sub-group of G lanes: where the
+// 6. fixup, for reduce block blk, by a sub-group of G lanes: where the
 // block holds the part of a row that starts in it and runs past it, add
 // the heads of the blocks the row runs into, in block order, and write the
 // row. A row spans few blocks (a block sums THREADS / G * CHUNK slots:
@@ -370,7 +551,8 @@ __device__ __forceinline__ void fixup_block(long long blk,
   put_row<T, VEC, K>(dvalue + (long long)r * D, acc, sl, G, D);
 }
 
-// rec [total] (slot, row, aw), sorted by row. Block j-th sub-group (G
+// rec [total] (slot, row, aw), sorted by row and by slot within a row.
+// Block j-th sub-group (G
 // lanes) sums chunk
 // blockIdx.x * SG + j of CHUNK slots, SG = THREADS / G. A row that lies in
 // one chunk is written at once. The pieces of rows that cross chunk edges
@@ -546,10 +728,10 @@ __global__ void __launch_bounds__(THREADS)
 
 static long long align256(long long n) { return (n + 255) / 256 * 256; }
 
-// The workspace for one shape: offsets in bytes of key, aw, rec, counts
-// (with the cursors after them), start, partials, carry_row and carry, and
-// the total.
-#define N_PARTS 8
+// The workspace for one shape: offsets in bytes of key, aw, placed, rec,
+// counts (with the cursors after them), start, partials, carry_row and
+// carry, and the total.
+#define N_PARTS 9
 struct Layout {
   long long off[N_PARTS];
   long long total;
@@ -561,7 +743,8 @@ struct Layout {
 
 static bool layout(const Dims& d, Layout& ly) {
   if (d.D < 1 || d.D > MAX_ROW_D || d.B < 1 || d.S < 1 || d.Q < 1 ||
-      d.H < 1 || d.P < 1 || d.L * d.P > MAX_LP)
+      d.H < 1 || d.P < 1 || d.L * d.P > MAX_LP ||
+      (long long)d.Q * d.P > MAX_ROW_POINTS)
     return false;
   ly.n_slots = (long long)d.B * d.Q * d.H * d.L * d.P * 4;
   ly.n_rows = (long long)d.B * d.S * d.H;
@@ -573,6 +756,7 @@ static bool layout(const Dims& d, Layout& ly) {
   const long long sizes[N_PARTS] = {
       ly.n_slots * 4,                      // key
       ly.n_slots * 4,                      // aw
+      ly.n_slots * 16,                     // placed
       ly.n_slots * 16,                     // rec
       ly.n_tiles * SCAN_TILE * 4 * 2,      // counts, cursors: whole tiles
       (ly.n_rows + 1) * 4,                 // start
@@ -589,8 +773,8 @@ static bool layout(const Dims& d, Layout& ly) {
 }
 
 // Bytes of workspace `ms_deform_attn_bwd` needs for the shape block, and
-// the offsets of key, aw, rec, counts, start, partials, carry_row and
-// carry in it (8 values); -1 for a shape it does not take.
+// the offsets of key, aw, placed, rec, counts, start, partials, carry_row
+// and carry in it (9 values); -1 for a shape it does not take.
 extern "C" long long ms_deform_attn_bwd_workspace(const int* dims,
                                                   long long* offsets) {
   Dims d;
@@ -615,13 +799,14 @@ static int launch(const void* value, const void* loc, const void* attn,
     return (int)cudaErrorInvalidValue;
   int* key = (int*)(ws + ly.off[0]);
   float* aw = (float*)(ws + ly.off[1]);
-  int4* rec = (int4*)(ws + ly.off[2]);
-  int* counts = (int*)(ws + ly.off[3]);
+  int4* placed = (int4*)(ws + ly.off[2]);
+  int4* rec = (int4*)(ws + ly.off[3]);
+  int* counts = (int*)(ws + ly.off[4]);
   int* cursor = counts + ly.n_tiles * SCAN_TILE;
-  int* start = (int*)(ws + ly.off[4]);
-  int* partials = (int*)(ws + ly.off[5]);
-  int* carry_row = (int*)(ws + ly.off[6]);
-  float* carry = (float*)(ws + ly.off[7]);
+  int* start = (int*)(ws + ly.off[5]);
+  int* partials = (int*)(ws + ly.off[6]);
+  int* carry_row = (int*)(ws + ly.off[7]);
+  float* carry = (float*)(ws + ly.off[8]);
   cudaError_t err =  // the counts and the cursors
       cudaMemsetAsync(counts, 0, ly.n_tiles * SCAN_TILE * 4 * 2, stream);
   if (err != cudaSuccess) return (int)err;
@@ -636,7 +821,11 @@ static int launch(const void* value, const void* loc, const void* attn,
   bwd_scan_kernel<T, VEC><<<(unsigned)ly.n_tiles, THREADS, 0, stream>>>(
       counts, partials, (int)ly.n_rows, start, (T*)dvalue, d.D);
   bwd_place_kernel<<<blocks_for(ly.n_slots), THREADS, 0, stream>>>(
-      key, aw, start, cursor, rec, ly.n_slots);
+      key, aw, start, cursor, placed, ly.n_slots);
+  bwd_sort_kernel<<<(unsigned)((ly.n_slots + SORT_TILE - 1) / SORT_TILE),
+                    THREADS, 0, stream>>>(placed, start, (int)ly.n_rows,
+                                          (int)ly.n_slots, d.Q, d.H, d.P,
+                                          d.L * d.P, rec);
   const long long n_blocks = blocks_for(ly.n_chunks * G);
   bwd_reduce_kernel<T, VEC, K><<<(unsigned)n_blocks, THREADS, 0, stream>>>(
       (const T*)grad, rec, start, (int)ly.n_rows, ly.n_slots,
@@ -663,7 +852,7 @@ static int launch_rows(const void* value, const void* loc, const void* attn,
 // dims: dtype (0 = f32, 1 = bf16, 2 = fp16: value, grad and dvalue), B, S,
 // Q, H, D, L, P, then L pairs (h, w). workspace:
 // `ms_deform_attn_bwd_workspace` bytes on a 256-byte boundary. D <= 128,
-// L*P <= 64, B*S*H and B*Q*H*L*P*4 below 2^31.
+// L*P <= 64, Q*P <= 4096, B*S*H and B*Q*H*L*P*4 below 2^31.
 extern "C" int ms_deform_attn_bwd(const void* value, const void* loc,
                                   const void* attn, const void* grad,
                                   void* dvalue, float* dloc, float* dattn,

@@ -2,13 +2,13 @@
 // ms_deform_attn_bwd.cu and the study's ms_deform_attn_fwd_*.cu) share: the
 // level table, the conversions between the value dtype and f32 and the
 // rounding of an f32 intermediate to the value dtype, the coordinate
-// rounding, the staging of a query tile's loc and attn into shared memory
-// (v7), 16-byte row pieces (v7, K1, K2, nocy, v1-v3, v45, v6, v8), the
-// sub-group row plan, a warp's points handed out by shuffles and a point's
-// corner rows (K1, K2, nocy, v1-v3, v45, v6, v8), K1's warp grid on the
-// native or the head-major layout with its launch and C entry point for
-// the study variants that sum a row over the points (v1-v3, v45, v6), and
-// the hat-weight body that v1 and v2 share.
+// rounding, 16-byte row pieces (K1, K2, nocy, v1-v3, v45, v6, v7, v8), the
+// sub-group row plan, a warp's points handed out by shuffles (K1, K2, nocy,
+// v1-v3, v45, v6, v7, v8) and a point's corner rows (K1, K2, nocy, v1-v3,
+// v45, v6, v8), K1's warp grid on the native or the head-major layout with
+// the study variants' launch and C entry point (v1-v3, v45, v6, v7; the
+// walk over a warp's points for those that sum a row over them: v1-v3,
+// v45, v6), and the hat-weight body that v1 and v2 share.
 
 #pragma once
 
@@ -79,13 +79,6 @@ __device__ __forceinline__ float hat(float x, float c) {
 // Float bounds test: NaN or inf coordinates fall outside, as in JAX.
 __device__ __forceinline__ bool inside(float c, int n) {
   return c >= 0.f && c <= (float)(n - 1);
-}
-
-// Copies `n` consecutive floats from global to shared memory with
-// coalesced loads, all threads of the block taking part.
-__device__ __forceinline__ void stage(float* dst, const float* __restrict__ src,
-                                      int n) {
-  for (int i = threadIdx.x; i < n; i += blockDim.x) dst[i] = src[i];
 }
 
 // 16 bytes of the value type as N floats.
@@ -358,7 +351,7 @@ __device__ __forceinline__ void load_corners(
     }
 }
 
-// ---------------------------------- K1's warp grid (v1, v2, v3, v45, v6)
+// ------------------------------ K1's warp grid (v1, v2, v3, v45, v6, v7)
 
 #define WARP_GRID_THREADS 256  // 8 warps a block
 

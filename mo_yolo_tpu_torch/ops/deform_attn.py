@@ -18,9 +18,10 @@ On the card `ms_deform_attn` launches K1 (`csrc/ms_deform_attn_fwd.cu`);
 where autograd needs it, through `MSDeformAttnFunction`, whose backward is
 K2 (`csrc/ms_deform_attn_bwd.cu`), so the sampler trains like its plain
 version. `ms_deform_attn_backward_rows_torch` is K2's design (corners
-sorted by the d_value row they land on, each row summed once) in plain
-tensor ops. `ms_deform_attn_onehot_torch` is the one-hot-matmul route of the
-JAX package (`ms_deform_attn_onehot`), plain tensor code on any device.
+sorted by the d_value row they land on and by slot within a row, each row
+summed once in that order) in plain tensor ops.
+`ms_deform_attn_onehot_torch` is the one-hot-matmul route of the JAX
+package (`ms_deform_attn_onehot`), plain tensor code on any device.
 """
 
 from __future__ import annotations
@@ -40,6 +41,9 @@ MAX_LEVELS = 8
 # K1 and K2 carry a row of at most MAX_D elements in a warp, and a warp's
 # L*P points in two registers a lane
 MAX_D, MAX_LP = 128, 64
+# K2 sorts a long d_value row's corners by their point q*P + p in a bit set
+# of this many points
+MAX_BWD_POINTS = 4096
 
 
 # corner c = (dx, dy): bilinear weight (1-tx|tx)·(1-ty|ty)
@@ -232,7 +236,8 @@ def ms_deform_attn_backward_rows_torch(value: torch.Tensor, shapes: Shapes,
     row (b·S + s)·H + h it lands on or -1 outside the map, and aw[c] =
     attn·wx·wy; <g, v_corner> gives d_attn and d_loc. The rows' counts
     (`bincount`), their exclusive prefix sum `start` (`cumsum`) and the
-    slots sorted by row (`ids`, a stable `argsort`) make the CSR lists; each
+    slots sorted by row (`ids`, a stable `argsort`, so each row's list
+    ascends by slot: the order K2 sums it in) make the CSR lists; each
     row's d_value is the sum of g[c // (L·P·4)]·aw[c] over its list, and a
     row with an empty list is zero.
 
@@ -421,7 +426,7 @@ def _launch(value: torch.Tensor, shapes: Shapes, loc: torch.Tensor,
 
 # K2's workspace: (B, S, Q, H, D, L, P) -> (bytes, offsets of its parts)
 _BWD_LAYOUT: dict = {}
-_BWD_PARTS = ("key", "aw", "rec", "counts", "start", "partials",
+_BWD_PARTS = ("key", "aw", "placed", "rec", "counts", "start", "partials",
               "carry_row", "carry")
 
 
@@ -429,6 +434,11 @@ def _bwd_layout(plan):
     sig = plan[1:]
     layout = _BWD_LAYOUT.get(sig)
     if layout is None:
+        Q, P = plan[3], plan[7]
+        if Q * P > MAX_BWD_POINTS:
+            raise ValueError(f"ms_deform_attn_bwd sorts a d_value row's "
+                             f"corners by point: Q*P <= {MAX_BWD_POINTS}, "
+                             f"got {Q * P}")
         fn = cuda_build.entry(
             "ms_deform_attn_bwd", "ms_deform_attn_bwd_workspace",
             [ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_longlong)],
@@ -447,7 +457,8 @@ def _launch_bwd(value: torch.Tensor, shapes: Shapes, loc: torch.Tensor,
                 rows: bool = False):
     """Launch K2. With `rows`, also return its intermediates: views of the
     workspace as `ms_deform_attn_backward_rows_torch` names them ("key",
-    "counts", "start", and "ids", the slots of the sorted records)."""
+    "counts", "start", and "ids", the slots of the sorted records, each
+    row's in ascending order)."""
     fn = cuda_build.entry("ms_deform_attn_bwd", "ms_deform_attn_bwd",
                           _BWD_ARGS)
     plan = _plan(value, shapes, loc, attn)

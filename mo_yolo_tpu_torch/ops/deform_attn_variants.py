@@ -8,9 +8,8 @@ Each computes the function of `ops.deform_attn.ms_deform_attn` (nocy on
 purpose not), with its shapes: value [B,S,H,D], loc [B,Q,H,L,P,2], attn
 [B,Q,H,L,P], output [B,Q,H·D] in the value dtype; loc and attn are held in
 f32. `TQ` is the number of queries one block of the TPU kernel owns; a
-last partial tile is padded (plain versions) or masked (v7's kernel, the
-one that tiles by it; v1-v6, v8 and nocy run one warp per (batch, query,
-head) and do not use it).
+last partial tile is padded (plain versions). The kernels run one warp per
+(batch, query, head) and do not use it.
 
 What each studies, and what its kernel does on the card:
 
@@ -40,9 +39,13 @@ What each studies, and what its kernel does on the card:
 - v6 (`csrc/ms_deform_attn_fwd_v6.cu`): only the x weights rounded, the
   point sum per level. Its kernel is the main-path kernel's arithmetic with
   that one rounding, on v1's grid and sub-groups.
-- v7 (`csrc/ms_deform_attn_fwd_v7.cu`): v3's arithmetic with v2's layout
-  preparation; its kernel still runs the TPU's grid, a block per (query
-  tile, head, batch) with the tile's loc and attn in shared memory.
+- v7 (`csrc/ms_deform_attn_fwd_v7.cu`): v3's arithmetic, its rounding
+  points kept, over a head-major value. Its layout preparation copies only
+  the value to [B,H,S,D], which is what v7 studies; its kernel runs v1's
+  grid in the order (b, h, q), so that consecutive warps share a head's
+  rows, reads loc and attn in their native rows and writes [B,Q,H·D]
+  directly. A point's (level, y tap) units are split among the sub-groups
+  that share it, and a shuffle joins them into its rounded sum.
 - v8 (`csrc/ms_deform_attn_fwd_v8.cu`): hat weights with attn in the x
   weight, intermediates rounded to the value dtype, the point sum per y row
   before the y-sum. Its kernel runs v1's grid and sub-groups on the native
@@ -374,13 +377,14 @@ def _check_tile(loc: torch.Tensor, TQ: int, heads_in_block: bool) -> None:
 
 
 def _check_grid(value: torch.Tensor, loc: torch.Tensor, TQ: int,
-                tiled: bool, heads_in_block: bool) -> None:
-    """`tiled`: the kernel stages a tile of TQ queries (with all heads, or
-    one) in shared memory (`_check_tile`); otherwise it runs one warp per
-    (b, q, h), carries the row and the points in a warp as the main-path
-    kernel does (D <= 128, L*P <= 64) and only checks TQ."""
+                tiled: bool) -> None:
+    """`tiled`: TQ must be a tile of queries with all heads that shared
+    memory could hold (`_check_tile`), the study interface's rule that nocy
+    keeps; otherwise the kernel runs one warp per (b, q, h), carries the row
+    and the points in a warp as the main-path kernel does (D <= 128,
+    L*P <= 64) and only checks TQ."""
     if tiled:
-        _check_tile(loc, TQ, heads_in_block)
+        _check_tile(loc, TQ, heads_in_block=True)
     else:
         _check_tq(TQ)
         _check_kernel(value, loc)
@@ -423,18 +427,10 @@ def _operands(value: torch.Tensor, shapes: Shapes, loc: torch.Tensor,
 
 
 def _check_rows(name: str, value: torch.Tensor, rows: str) -> None:
-    """What a kernel's row loads need. "vec16": 16-byte loads, so a row is
-    a multiple of 16 bytes, at most 512, on a 16-byte boundary (v7).
-    "pairs": the study interface's rule that nocy keeps, D even and at most
-    64 and value on a two-element boundary."""
+    """What a kernel's row loads need. "pairs": the study interface's rule
+    that nocy keeps, D even and at most 64 and value on a two-element
+    boundary; "": any row the main-path kernel's pieces take."""
     D, esize = value.shape[3], value.element_size()
-    row_bytes = D * esize
-    if rows == "vec16" and (row_bytes % 16 or row_bytes > 512 or
-                            value.data_ptr() % 16):
-        raise ValueError(f"{name} needs rows of a multiple of 16 bytes, at "
-                         f"most 512, 16-byte aligned; D={D} in {value.dtype} "
-                         f"is {row_bytes} bytes at offset "
-                         f"{value.data_ptr() % 16}")
     if rows == "pairs" and (D % 2 or D > 64 or
                             value.data_ptr() % (2 * esize)):
         raise ValueError(f"{name} needs an even D of at most 64 on a "
@@ -449,9 +445,9 @@ def _native_layout(name: str, counter: Callable, value, shapes, loc, attn,
     finish): `launch()` runs only the kernel, `finish(out)` gives the
     [B,Q,H·D] result. `rows`: the kernel's row rule (`_check_rows`);
     `ws_floats`: an f32 workspace of that many elements, allocated for each
-    launch; `tiled`: as `_check_grid`, a tile with all heads."""
+    launch; `tiled`: as `_check_grid`."""
     loc, attn, dims = _operands(value, shapes, loc, attn)
-    _check_grid(value, loc, TQ, tiled, heads_in_block=True)
+    _check_grid(value, loc, TQ, tiled)
     _check_rows(name, value, rows)
     B, _, Q, H, D = dims[:5]
 
@@ -465,17 +461,24 @@ def _native_layout(name: str, counter: Callable, value, shapes, loc, attn,
 
 
 def _head_major(name: str, counter: Callable, value, shapes, loc, attn,
-                TQ: int, rows: str = "", tiled: bool = True):
-    """A variant on head-major operands: value [B,H,S,D], loc
-    [B,H,Q,L,P,2], attn [B,H,Q,L,P], each a transposed copy. Returns
-    (launch, finish): `launch()` runs only the kernel and gives [B,H,Q,D];
-    `finish(out)` transposes it back to [B,Q,H·D]. `rows` as in
-    `_native_layout`; `tiled`: as `_check_grid`, a tile with one head."""
+                TQ: int, value_only: bool = False):
+    """A variant on a head-major value [B,H,S,D], a transposed copy, whose
+    kernel runs one warp per (b, h, q) and tiles nothing. Returns (launch,
+    finish): `launch()` runs only the kernel. With `value_only` (v7) loc,
+    attn and the [B,Q,H·D] output keep their layouts; otherwise (v2) loc
+    [B,H,Q,L,P,2] and attn [B,H,Q,L,P] are transposed copies too, the
+    kernel gives [B,H,Q,D] and `finish(out)` transposes it back."""
     loc, attn, dims = _operands(value, shapes, loc, attn)
-    _check_grid(value, loc, TQ, tiled, heads_in_block=False)
+    _check_grid(value, loc, TQ, tiled=False)
     B, _, Q, H, D = dims[:5]
     value_hm = value.permute(0, 2, 1, 3).contiguous()
-    _check_rows(name, value_hm, rows)
+    if value_only:
+        def launch():
+            out = torch.empty(B, Q, H * D, dtype=value.dtype,
+                              device=value.device)
+            return _c_launch(name, counter, value_hm, shapes, loc, attn, out,
+                             dims, TQ)
+        return launch, lambda out: out
     loc_hm = loc.permute(0, 2, 1, 3, 4, 5).contiguous()
     attn_hm = attn.permute(0, 2, 1, 3, 4).contiguous()
 
@@ -497,10 +500,9 @@ def prepare_v1(value, shapes, loc, attn, TQ=64):
 
 
 def prepare_v2(value, shapes, loc, attn, TQ=64):
-    """v2's layout preparation (`_head_major`); its kernel runs one warp
-    per (b, h, q) and tiles nothing."""
+    """v2's layout preparation: every operand head-major (`_head_major`)."""
     return _head_major("ms_deform_attn_fwd_v2", fwd_v2, value, shapes, loc,
-                       attn, TQ, tiled=False)
+                       attn, TQ)
 
 
 def prepare_v3(value, shapes, loc, attn, TQ=64):
@@ -540,10 +542,10 @@ def prepare_v6(value, shapes, loc, attn, TQ=64):
 
 
 def prepare_v7(value, shapes, loc, attn, TQ=64):
-    """v7's layout preparation is v2's (`_head_major`), with rows its
-    16-byte loads can take."""
+    """v7's layout preparation: the value head-major, loc, attn and the
+    output as they are (`_head_major` with `value_only`)."""
     return _head_major("ms_deform_attn_fwd_v7", fwd_v7, value, shapes, loc,
-                       attn, TQ, rows="vec16")
+                       attn, TQ, value_only=True)
 
 
 def prepare_v8(value, shapes, loc, attn, TQ=128):
@@ -621,10 +623,10 @@ def fwd_v6(value: torch.Tensor, shapes: Shapes, loc: torch.Tensor,
 
 def fwd_v7(value: torch.Tensor, shapes: Shapes, loc: torch.Tensor,
            attn: torch.Tensor, TQ: int = 64) -> torch.Tensor:
-    """Variant v7, its head-major transposes included. CPU tensor:
+    """Variant v7, its value's head-major copy included. CPU tensor:
     `fwd_v7_torch`. CUDA tensor: the kernel `csrc/ms_deform_attn_fwd_v7.cu`,
-    or an exception (a row that is not a multiple of 16 bytes raises);
-    never the plain version. `fwd_v7.launches` counts launches."""
+    or an exception (D over 128 or L·P over 64 raises); never the plain
+    version. `fwd_v7.launches` counts launches."""
     return _run(prepare_v7, fwd_v7_torch, value, shapes, loc, attn, TQ)
 
 

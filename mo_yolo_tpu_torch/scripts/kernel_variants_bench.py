@@ -25,8 +25,9 @@ variant to the plain gather sampler in f32. Variants:
           card v1's grid and warp with the main-path kernel's arithmetic
   nocy    no y weight (wrong on purpose: the sum over a level's whole
           column; left out of --parity)
-  v7      v3's arithmetic and warp on v2's grid (head-major, transposes
-          timed with it)
+  v7      v3's arithmetic and rounding points over a head-major value
+          (its copy timed with it); on the card v1's grid in the order
+          (batch, head, query), loc, attn and the output in their layouts
   v8      hat weights with attn in the x weight, intermediates in the
           value dtype, the point sum per y row before the y-sum; on the
           card v1's grid and warp, the rows matched once per (query, level)

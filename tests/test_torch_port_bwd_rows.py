@@ -150,6 +150,25 @@ def test_rows_form_intermediates_are_the_csr_lists(case):
     assert torch.equal(rows_of, seg)
 
 
+def test_rows_form_lists_ascend_by_slot_in_every_row():
+    """Within each row's list the slots ascend: the order in which K2 sums
+    a row, so that its d_value is the same in every run. On clustered
+    points, where rows hold hundreds of corners; the slots of a row have
+    distinct points u = q·P + p (a point's four corners are four pixels),
+    which order them as the slots do."""
+    (_, _, _, rows), _, (value, loc, _, _) = _rows("clustered")
+    start, ids = rows["start"].long(), rows["ids"]
+    Q, H, L, P = loc.shape[1], value.shape[2], loc.shape[3], loc.shape[4]
+    assert int((start[1:] - start[:-1]).max()) > 100
+    first = torch.zeros(ids.numel(), dtype=torch.bool)
+    first[start[:-1][start[:-1] < ids.numel()]] = True
+    step = ids[1:] - ids[:-1]
+    assert bool((step[~first[1:]] > 0).all())
+    pt = ids // 4
+    u = (pt // (L * P) // H % Q) * P + pt % (L * P) % P
+    assert bool((u[1:][~first[1:]] > u[:-1][~first[1:]]).all())
+
+
 def test_rows_form_in_f64_passes_gradcheck():
     """The rows form is the sampler's gradient: in f64 against finite
     differences of the plain sampler, through the Function with the rows

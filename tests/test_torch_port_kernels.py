@@ -22,7 +22,7 @@ F32_ATOL = 1e-5           # same f32 arithmetic, other summation order
 BF16_ATOL = BF16_RTOL = 1e-2   # one bf16 rounding of the output
 # K2: d_loc/d_attn sum <g, v> over D in another order (warp shuffles) and
 # are ~25 in magnitude, so 1e-5 is held relative as well as absolute;
-# d_value is summed by atomics in an order that changes from run to run
+# d_value sums each row in slot order, another order than `index_add_`'s
 BWD_F32_TOL = 1e-5
 DVALUE_RTOL = 1e-4
 
@@ -97,16 +97,22 @@ def test_backward_kernel_source_has_its_c_entry_point():
 
 
 def test_backward_kernel_sums_without_float_atomics():
-    """K2 writes every d_value row once: its only atomics are the integer
-    row counts, and there is no cast pass and no zeroed f32 buffer."""
+    """K2 writes every d_value row once: its only atomics are integer ones
+    (the row counts, the list cursors, and in the sort stage a block's
+    count of long rows and the bits of their sets in shared memory), and
+    there is no cast pass and no zeroed f32 buffer."""
     import re
     from mo_yolo_tpu_torch.ops import deform_attn as da
     from mo_yolo_tpu_torch.utils.cuda_build import CSRC
     src = (CSRC / "ms_deform_attn_bwd.cu").read_text()
     calls = re.findall(r"atomic\w+\(([^,]*),", src)
-    assert calls == ["counts + r", "cursor + r"]
+    assert calls == ["counts + r", "cursor + r", "&s_n_long",
+                     "bits + row[k] * ROW_WORDS + (u >> 5)"]
     assert "int* __restrict__ counts" in src and \
         "int* __restrict__ cursor" in src
+    assert "unsigned* bits = &s_bits[0][0].x;" in src and \
+        "__shared__ uint4 s_bits[" in src and \
+        re.search(r"__shared__ int [^;]*\bs_n_long;", src)
     assert "cast" not in src.split("#include")[1]
     import inspect
     assert "torch.zeros" not in inspect.getsource(da._launch_bwd)
@@ -241,6 +247,24 @@ def test_s2_to_s4_kernels_run_on_the_main_path_kernels_warp_grid(
     assert "What bounds it on the card: bytes" in src
 
 
+def test_s6_kernel_runs_on_the_main_path_kernels_warp_grid():
+    """S6 (v7) runs K1's warp grid: no tile staged in shared memory, one
+    launch through `warp_grid_entry`; the source names the TPU kernel it
+    replaces, and the shared header no longer holds the staging helper."""
+    from mo_yolo_tpu_torch.utils.cuda_build import CSRC
+
+    def code(text):
+        return "\n".join(ln.split("//")[0] for ln in text.splitlines())
+    src = (CSRC / "ms_deform_attn_fwd_v7.cu").read_text()
+    body = code(src)
+    assert "__shared__" not in body and "stage(" not in body
+    assert "warp_grid_entry<FwdV7>(" in body and "WarpPoints pts;" in body
+    assert "Replaces the TPU kernel `scripts/kernel_variants_bench.py:" \
+        "_kernel_v7`" in src
+    assert "What bounds it on the card: bytes" in src
+    assert "stage" not in code((CSRC / "sampler_common.cuh").read_text())
+
+
 def test_shared_header_has_no_tpu_grid_skeleton():
     """No kernel runs the TPU's grid of two elements a lane any more, so
     the shared header holds neither its walk nor its two-element pieces."""
@@ -363,8 +387,8 @@ def test_backward_kernel_new_cases_on_card(card, case):
     """K2 on corners that pile onto few rows (hundreds of corners a row,
     rows that cross the reduce's chunks) and on D=40 bf16 rows (80 bytes:
     the element-a-lane kernels), against the plain gradient: f32 d_loc and
-    d_attn 1e-5, d_value 1e-4 relative (its order comes from atomics);
-    bf16 1e-2."""
+    d_attn 1e-5, d_value 1e-4 relative (each row summed in slot order,
+    another order than the plain version's `index_add_`); bf16 1e-2."""
     from mo_yolo_tpu_torch.ops.deform_attn import (
         ms_deform_attn_backward, ms_deform_attn_backward_torch)
     if case == "clustered":
@@ -395,9 +419,10 @@ def test_backward_kernel_new_cases_on_card(card, case):
 @pytest.mark.gpu
 @pytest.mark.parametrize("case", ["q70", "clustered"])
 def test_backward_kernel_rows_equal_the_plain_rows_on_card(card, case):
-    """K2's intermediates: the key of every corner slot and the row counts
-    equal the plain rows form's exactly; start is their prefix sum and ids
-    lists every in-bounds slot once, by row."""
+    """K2's intermediates equal the plain rows form's exactly: the key of
+    every corner slot, the row counts, their prefix sum start, and ids,
+    every in-bounds slot once, by row and in ascending slot order within a
+    row (the stable argsort's order, in which K2 sums each row)."""
     from mo_yolo_tpu_torch.ops.deform_attn import (
         _launch_bwd, ms_deform_attn_backward_rows_torch)
     if case == "clustered":
@@ -410,10 +435,30 @@ def test_backward_kernel_rows_equal_the_plain_rows_on_card(card, case):
     assert torch.equal(rows["key"], want["key"])
     assert torch.equal(rows["counts"], want["counts"])
     assert torch.equal(rows["start"], want["start"])
-    ids = rows["ids"].long()
-    assert torch.equal(ids.sort().values, want["ids"].sort().values)
-    assert torch.equal(rows["key"].reshape(-1)[ids],
-                       want["key"].reshape(-1)[want["ids"]])
+    assert torch.equal(rows["ids"].long(), want["ids"])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["q70", "clustered"])
+def test_backward_kernel_gives_the_same_gradient_every_call_on_card(card,
+                                                                    case):
+    """K2 sums each d_value row in slot order, so three calls on the same
+    inputs give d_value, d_loc and d_attn equal bit for bit, in f32 and
+    bf16, with corners spread out and piled onto a few rows."""
+    from mo_yolo_tpu_torch.ops.deform_attn import ms_deform_attn_backward
+    if case == "clustered":
+        value, shapes, loc, attn = _clustered_inputs(card)
+    else:
+        value, shapes, loc, attn = _torch_inputs(case, card)
+    g = _grad_out(value, loc, seed=6)
+    for dt in (torch.float32, torch.bfloat16):
+        v, gg = value.to(dt), g.to(dt)
+        first, *again = [ms_deform_attn_backward(v, shapes, loc, attn, gg)
+                         for _ in range(3)]
+        torch.cuda.synchronize()
+        for got in again:
+            for a, b in zip(got, first):
+                assert torch.equal(a, b), dt
 
 
 @pytest.mark.gpu
@@ -640,29 +685,25 @@ def test_variant_wrappers_raise_instead_of_falling_back(card, monkeypatch):
         with pytest.raises(ValueError):
             fn(value, shapes, loc, attn, TQ=0)
         if fn in (dv.fwd_v1, dv.fwd_v2, dv.fwd_v3, dv.fwd_v45, dv.fwd_v6,
-                  dv.fwd_v8):
+                  dv.fwd_v7, dv.fwd_v8):
             # one warp per (b, q, h): no tile to stage, TQ is only checked
             assert torch.equal(fn(value, shapes, loc, attn, TQ=10 ** 6),
                                fn(value, shapes, loc, attn, TQ=64))
         else:
             with pytest.raises(ValueError):
                 fn(value, shapes, loc, attn, TQ=10 ** 6)
-    # a row that is no multiple of 16 bytes (24 bytes in f32): v7 raises,
-    # v1-v3 take it
+    # a row that is no multiple of 16 bytes (24 bytes in f32): the kernels
+    # on the main-path kernel's grid take it
     odd = torch.randn(1, value.shape[1], 2, 6, device=card)
-    with pytest.raises(ValueError, match="16 bytes"):
-        dv.fwd_v7(odd, shapes, loc, attn)
-    for fn in (dv.fwd_v1, dv.fwd_v2, dv.fwd_v3):
+    for fn in (dv.fwd_v1, dv.fwd_v2, dv.fwd_v3, dv.fwd_v7):
         assert fn(odd, shapes, loc, attn).shape == (1, 10, 12)
-    # an odd D: nocy keeps the study interface's even D and raises, v7 its
-    # 16-byte rows; the kernels on the main-path kernel's grid take it
+    # an odd D: nocy keeps the study interface's even D and raises; the
+    # kernels on the main-path kernel's grid take it
     odd = torch.randn(1, value.shape[1], 2, 7, device=card)
     with pytest.raises(ValueError, match="even D"):
         dv.fwd_nocy(odd, shapes, loc, attn)
-    with pytest.raises(ValueError, match="16 bytes"):
-        dv.fwd_v7(odd, shapes, loc, attn)
     for fn in (dv.fwd_v1, dv.fwd_v2, dv.fwd_v3, dv.fwd_v45, dv.fwd_v6,
-               dv.fwd_v8):
+               dv.fwd_v7, dv.fwd_v8):
         assert fn(odd, shapes, loc, attn).shape == (1, 10, 14)
 
 
@@ -670,10 +711,10 @@ def test_variant_wrappers_raise_instead_of_falling_back(card, monkeypatch):
 @pytest.mark.parametrize("tq", [64, 128, 256])
 @pytest.mark.parametrize("levels", ["1536x800", "small"])
 @pytest.mark.parametrize("variant", ["v1", "v2", "v3", "v4", "v5", "v6",
-                                     "v8"])
+                                     "v7", "v8"])
 def test_warp_grid_kernels_on_clustered_points_on_card(card, monkeypatch,
                                                        variant, levels, tq):
-    """The kernels on the main-path kernel's grid (v1-v3, v4/v5, v6, v8)
+    """The kernels on the main-path kernel's grid (v1-v3, v4/v5, v6-v8)
     with every point in [0.45, 0.55] at the study's 1536x800 levels and at
     the small ones (Q=600, H=8, D=32): at 6x8 every point of a level
     touches the same two rows, so v8's row groups have up to 2P members.
@@ -719,9 +760,9 @@ def test_warp_grid_kernels_on_clustered_points_on_card(card, monkeypatch,
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("variant", ["v1", "v2", "v3", "v4", "v5", "v6",
-                                     "v8"])
+                                     "v7", "v8"])
 def test_warp_grid_kernels_take_the_main_path_kernels_rows(card, variant):
-    """v1-v3, v4/v5, v6 and v8 carry a row and a warp's points as the
+    """v1-v3, v4/v5, v6, v7 and v8 carry a row and a warp's points as the
     main-path kernel does: D above 128 raises before any launch, and so
     does L*P above 64 (v8 takes at most 8 points, so at most 64 at 8
     levels)."""

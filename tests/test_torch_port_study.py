@@ -137,15 +137,15 @@ def test_variant_plain_versions_match_pallas_interpret_in_bf16(jax_variants,
 @pytest.mark.parametrize("levels", [((12, 16), (6, 8), (3, 4)),
                                     ((100, 192), (50, 96), (25, 48))],
                          ids=["small", "1536x800"])
-@pytest.mark.parametrize("variant", ["v2", "v3", "v8"])
+@pytest.mark.parametrize("variant", ["v2", "v3", "v7", "v8"])
 def test_v8_plain_version_on_clustered_points_matches_pallas_interpret(
         jax_variants, variant, levels):
     """Every point in [0.45, 0.55] (at the small levels' 6x8 every point of
     a level touches the same two rows, so a row sums the u of up to 4
-    points before its rounding): in bf16 the plain versions of v2, v3 and
-    v8 and the interpreted TPU kernels agree to one bf16 ulp at the
-    output's scale; v2 and v3, whose kernels run on K1's warp grid, also
-    within 1e-5 in f32."""
+    points before its rounding): in bf16 the plain versions of v2, v3, v7
+    and v8 and the interpreted TPU kernels agree to one bf16 ulp at the
+    output's scale; v2, v3 and v7, whose kernels run on K1's warp grid,
+    also within 1e-5 in f32."""
     value, shapes, loc, attn = rand_sampler_inputs(Q=16, shapes=levels,
                                                    seed=13)
     loc = np.random.default_rng(13).uniform(0.45, 0.55, loc.shape).astype(
@@ -206,9 +206,8 @@ def test_nocy_plain_version_on_edge_cases_matches_pallas_interpret(
 def test_variant_wrappers_validate_before_launching(name):
     """What the kernels do not take raises before anything is built or
     launched; nothing falls back: `prepare_*` refuses a CPU tensor, a tile
-    too large for shared memory raises (the kernel that stages one, v7,
-    and, by the study interface's rule, nocy), and so does a plain
-    version's tile of no queries."""
+    too large for shared memory raises (the study interface's rule, which
+    nocy keeps), and so does a plain version's tile of no queries."""
     from mo_yolo_tpu_torch.ops import deform_attn_variants as dv
     value, shapes, loc, attn = (torch.from_numpy(a) if isinstance(
         a, np.ndarray) else a for a in SAMPLER_CASES["q10"]())
@@ -225,9 +224,9 @@ def test_variant_wrappers_validate_before_launching(name):
 
 def test_variant_row_rules():
     """The row rules the wrappers hold: the study interface's even D of
-    at most 64 (nocy) and 16-byte rows (v7, which still runs the TPU's
-    grid); the kernels on the main-path kernel's grid (v1-v3, v45, v6, v8)
-    take any D up to 128 with no row rule; v8 takes at most 8 points."""
+    at most 64 (nocy); the kernels on the main-path kernel's grid (v1-v3,
+    v45, v6, v7, v8) take any D up to 128 with no row rule; v8 takes at
+    most 8 points."""
     from mo_yolo_tpu_torch.ops import deform_attn_variants as dv
     for D, ok in ((8, True), (32, True), (64, True), (6, True), (7, False),
                   (66, False)):
@@ -237,10 +236,6 @@ def test_variant_row_rules():
         else:
             with pytest.raises(ValueError, match="even D"):
                 dv._check_rows("k", v, "pairs")
-    dv._check_rows("k", torch.zeros(1, 4, 2, 8, dtype=torch.bfloat16),
-                   "vec16")
-    with pytest.raises(ValueError, match="16 bytes"):
-        dv._check_rows("k", torch.zeros(1, 4, 2, 6), "vec16")
     dv._check_rows("k", torch.zeros(1, 4, 2, 7), "")
     value, shapes, loc, attn = rand_sampler_inputs(Q=4, P=9)
     with pytest.raises(ValueError, match="at most 8 points"):
