@@ -6,12 +6,16 @@ solves each problem with the Jonker-Volgenant solver of the JAX package
 (`hungarian_jv`): on a CUDA tensor as one launch of `csrc/jv_assign.cu`,
 which reads nothing back to the host, on a CPU tensor as its plain PyTorch
 version (`hungarian_jv_torch`); `match` does both for a layer's
-predictions. Where G <= Q the solver follows the JAX one step for step, so
-the assignments are equal, ties included. Where G > Q it drops the padded
-GT columns and, if the valid ones still outnumber the queries, solves the
-transposed problem, so it keeps the optimum where the JAX solver leaves GT
-columns unassigned. scipy's `linear_sum_assignment` (`_scipy_assign`) is
-the tests' oracle and runs on no path.
+predictions, `match_layers` for several layers as one batch (one launch).
+Where G <= Q the solver gives the JAX one's assignment and Dijkstra step
+count, ties included; a padded GT row, whose walk the JAX solver takes
+through every column zero reduced costs reach, is decided without the
+walk wherever its outcome is certain (`_decide_padded`); `jv_counts`
+keeps the steps walked and the padded rows decided and walked. Where G > Q it
+drops the padded GT columns and, if the valid ones still outnumber the
+queries, solves the transposed problem, so it keeps the optimum where the
+JAX solver leaves GT columns unassigned. scipy's `linear_sum_assignment`
+(`_scipy_assign`) is the tests' oracle and runs on no path.
 
 Ground truth is padded to a fixed G with a column mask; an assignment is
 an int32 array [B, G] of query rows, -1 for padding.
@@ -81,21 +85,84 @@ def _scipy_assign(cost: np.ndarray, mask: np.ndarray) -> np.ndarray:
 
 
 _INF = 1e30     # the JAX solver's `_INF`
+# `csrc/jv_assign.cu`'s block: its threads, the shared memory it may take,
+# and the most GT slots it keeps tight sets for
+_THREADS, _MAX_SMEM, _TIGHT_MAX_G = 512, 232448, 1024
 
 
-def _jv_dense(C: torch.Tensor) -> Tuple[torch.Tensor, int]:
+def _tight_sets_fit(Q: int, G: int) -> bool:
+    """Whether the kernel keeps tight sets for a [Q, G] problem (`plan()` in
+    `csrc/jv_assign.cu`): G <= Q, G <= 1,024 and the sets beside the walk's
+    state in a block's shared memory. Only then are padded rows decided at
+    once, by the kernel and the plain version alike."""
+    if G > Q or G > _TIGHT_MAX_G:
+        return False
+    W = (G + 31) // 32
+    base = 16 * (_THREADS // 32) + 16 + 16 * Q + 8 * G
+    base = (base + G + 15) // 16 * 16
+    return base + 4 * G * W + 4 * G + 4 * W <= _MAX_SMEM
+
+
+def _decide_padded(C: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
+                   col2row: torch.Tensor) -> Optional[Tuple[int, int]]:
+    """A padded (constant-0) row's Dijkstra decided without walking it:
+    (f0, steps) where it would take the lowest free column f0 in `steps`
+    steps, or None where the walk is needed.
+
+    Where v <= 0 on every column and no row the walk reaches has a
+    negative reduced cost `(C[i] - u[i]) - v` (in f32, the walk's rounding)
+    off its own column, every delta of the walk is exactly 0: no dual
+    moves, the walk pops in turn the columns below f0 that zero reduced
+    costs reach from the columns with v = 0, then f0, and the augment only
+    sets col2row[f0]. So the steps are that closure's size plus one."""
+    R = C.shape[0]
+    f0 = int(torch.nonzero(col2row < 0)[0, 0])
+    if not bool((v <= 0).all()) or float(v[f0]) != 0.0:
+        return None
+    rc = (C - u[:, None]) - v[None, :]
+    own = col2row[None, :] == torch.arange(R, device=C.device)[:, None]
+    ok = ((rc >= 0) | own).all(1)
+    tight = rc[:, :f0] == 0
+    closure = v[:f0] == 0
+    reached = torch.zeros(R, dtype=torch.bool, device=C.device)
+    while True:
+        rows = torch.zeros_like(reached)
+        rows[col2row[:f0][closure]] = True
+        new = rows & ~reached
+        if not bool(new.any()):
+            return f0, int(closure.sum()) + 1
+        if not bool(ok[new].all()):
+            return None
+        reached |= new
+        closure = closure | tight[new].any(0)
+
+
+def _jv_dense(C: torch.Tensor, padded: Optional[torch.Tensor] = None,
+              decide: bool = True) -> Tuple[torch.Tensor, int, List[int]]:
     """Jonker-Volgenant on a dense f32 cost C [R, K], R <= K, as the JAX
     package's `_jv_single` runs it: one Dijkstra a row over the K columns
-    with the duals u, v, then the augment walk. Returns (col2row [K] int64,
-    the row per column or -1; the Dijkstra steps). Every step reads its
-    argmin and the next row on the host."""
+    with the duals u, v, then the augment walk; a row of `padded` [R] bool
+    (a constant-0 row) is decided at once, with `decide`, where
+    `_decide_padded` can, with the walk's result and step count. Returns (col2row [K] int64, the row
+    per column or -1; the Dijkstra steps; [walked steps, padded rows
+    decided, padded rows walked], as `jv_counts` keeps them). Every walked
+    step reads its argmin and the next row on the host."""
     R, K = C.shape
     dev = C.device
     u = torch.zeros(R, dtype=torch.float32, device=dev)
     v = torch.zeros(K, dtype=torch.float32, device=dev)
     col2row = torch.full((K,), -1, dtype=torch.int64, device=dev)
     steps = 0
+    detail = [0, 0, 0]
     for r in range(R):
+        if padded is not None and bool(padded[r]):
+            decided = _decide_padded(C, u, v, col2row) if decide else None
+            if decided is not None:
+                col2row[decided[0]] = r
+                steps += decided[1]
+                detail[1] += 1
+                continue
+            detail[2] += 1
         minv = torch.full((K,), _INF, dtype=torch.float32, device=dev)
         way = torch.full((K,), -1, dtype=torch.int64, device=dev)
         used = torch.zeros(K, dtype=torch.bool, device=dev)
@@ -123,6 +190,7 @@ def _jv_dense(C: torch.Tensor) -> Tuple[torch.Tensor, int]:
                 i0 = i_next
             j0 = j1
             steps += 1
+            detail[0] += 1
             if done:
                 break
         if done:
@@ -131,44 +199,53 @@ def _jv_dense(C: torch.Tensor) -> Tuple[torch.Tensor, int]:
                 jp = int(way[j])
                 col2row[j] = r if jp < 0 else col2row[jp]
                 j = jp
-    return col2row, steps
+    return col2row, steps, detail
 
 
 def hungarian_jv_torch(cost: torch.Tensor, gt_mask: torch.Tensor
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The plain version of `csrc/jv_assign.cu`: cost [B,Q,G], gt_mask
     [B,G] bool -> (assign [B,G] int32, query row per GT or -1; the Dijkstra
-    steps [B] int32), on cost's device.
+    steps [B] int32), on cost's device; it adds to `jv_counts` as the
+    kernel does.
 
     G <= Q: the JAX solver's problem (every GT column a row, a padded one
     a constant-0 row), so assign and the steps equal `hungarian_jv(...,
-    with_stats=True)` of the JAX package. G > Q: the padded columns are
-    dropped, and where the n valid ones outnumber the Q queries the
-    transposed problem (queries as rows) is solved."""
+    with_stats=True)` of the JAX package; where the kernel keeps tight sets
+    (`_tight_sets_fit`) a padded row is decided without its walk if
+    `_decide_padded` shows the walk's outcome. G > Q: the
+    padded columns are dropped, and where the n valid ones outnumber the
+    Q queries the transposed problem (queries as rows) is solved."""
     _check(cost, gt_mask)
     B, Q, G = cost.shape
     dev = cost.device
     cost = cost.detach().float()
     assign = torch.full((B, G), -1, dtype=torch.int64, device=dev)
     steps = torch.zeros(B, dtype=torch.int32, device=dev)
+    counts = [0, 0, 0]
+    decide = _tight_sets_fit(Q, G)
     for b in range(B):
         if G <= Q:
             C = torch.where(gt_mask[b][:, None], cost[b].T,
                             torch.zeros((), device=dev))
-            col2row, steps_b = _jv_dense(C)
+            col2row, steps_b, detail_b = _jv_dense(C, ~gt_mask[b], decide)
             cols = torch.nonzero(col2row >= 0)[:, 0]
             assign[b, col2row[cols]] = cols
             assign[b] = torch.where(gt_mask[b], assign[b], -1)
         else:
             idx = torch.nonzero(gt_mask[b])[:, 0]
             if idx.numel() <= Q:
-                col2row, steps_b = _jv_dense(cost[b][:, idx].T.contiguous())
+                col2row, steps_b, detail_b = _jv_dense(
+                    cost[b][:, idx].T.contiguous())
                 cols = torch.nonzero(col2row >= 0)[:, 0]
                 assign[b, idx[col2row[cols]]] = cols
             else:
-                col2row, steps_b = _jv_dense(cost[b][:, idx].contiguous())
+                col2row, steps_b, detail_b = _jv_dense(
+                    cost[b][:, idx].contiguous())
                 assign[b, idx] = col2row
         steps[b] = steps_b
+        counts = [c + d for c, d in zip(counts, detail_b)]
+    jv_counts(dev).add_(torch.tensor(counts, dtype=torch.int64, device=dev))
     return assign.to(torch.int32), steps
 
 
@@ -183,7 +260,9 @@ def _check(cost: torch.Tensor, gt_mask: torch.Tensor) -> None:
         raise ValueError("cost and gt_mask must be on one device")
 
 
-_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+# device -> the solver's running counts there (`jv_counts`)
+_COUNTS: dict = {}
 # (Q, G) -> the shared memory one problem's block takes (-1: too large),
 # asked once for each shape
 _SMEM: dict = {}
@@ -198,6 +277,21 @@ def _smem_bytes(Q: int, G: int) -> int:
     return smem
 
 
+def jv_counts(device) -> torch.Tensor:
+    """The solver's running counts on `device`, an int64 [3] tensor there:
+    the Dijkstra steps walked, the padded GT rows decided at once and those
+    walked. Every solve on the device adds to them, the kernel's without
+    reading anything back; `jv_counts(device).zero_()` starts them anew."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    counts = _COUNTS.get(device)
+    if counts is None:
+        counts = _COUNTS[device] = torch.zeros(3, dtype=torch.int64,
+                                               device=device)
+    return counts
+
+
 def hungarian_jv(cost: torch.Tensor, gt_mask: torch.Tensor,
                  with_stats: bool = False):
     """Exact assignment [B,G] int32 of cost [B,Q,G] (f32 inside) under
@@ -205,10 +299,11 @@ def hungarian_jv(cost: torch.Tensor, gt_mask: torch.Tensor,
     int32. On a CPU tensor it is the plain version; on a CUDA tensor it
     launches the kernel (`csrc/jv_assign.cu`: one block a problem, on the
     current stream, nothing read back) or raises; it never falls back.
-    `hungarian_jv.launches` counts calls that launched."""
+    Both add to `jv_counts`; `hungarian_jv.launches` counts calls that
+    launched."""
     if cost.device.type == "cpu":
-        assign, steps = hungarian_jv_torch(cost, gt_mask)
-        return (assign, steps) if with_stats else assign
+        out = hungarian_jv_torch(cost, gt_mask)
+        return out if with_stats else out[0]
     if cost.device.type != "cuda":
         raise ValueError(f"unsupported device {cost.device}")
     _check(cost, gt_mask)
@@ -225,7 +320,7 @@ def hungarian_jv(cost: torch.Tensor, gt_mask: torch.Tensor,
     err = cuda_build.call(fn, cost, cost.data_ptr(), gt_mask.data_ptr(),
                           assign.data_ptr(),
                           None if steps is None else steps.data_ptr(),
-                          B, Q, G)
+                          jv_counts(cost.device).data_ptr(), B, Q, G)
     if err != 0:
         raise RuntimeError(f"jv_assign launch failed: CUDA error {err}")
     hungarian_jv.launches += 1
@@ -287,6 +382,19 @@ def hungarian(cost: torch.Tensor, gt_mask: torch.Tensor) -> torch.Tensor:
     return hungarian_jv(cost, gt_mask)
 
 
+def _masked_cost(pred_boxes: torch.Tensor, pred_logits: torch.Tensor,
+                 gt_boxes: torch.Tensor, gt_cls: torch.Tensor,
+                 gt_mask: torch.Tensor, query_mask: Optional[torch.Tensor],
+                 big: float, gains: dict) -> torch.Tensor:
+    """`match_cost` with the queries outside `query_mask` [B,Q] at `big`."""
+    cost = match_cost(pred_boxes, pred_logits, gt_boxes, gt_cls, gt_mask,
+                      big=big, **gains)
+    if query_mask is not None:
+        cost = torch.where(query_mask[:, :, None], cost,
+                           torch.full_like(cost, big))
+    return cost
+
+
 def match(pred_boxes: torch.Tensor, pred_logits: torch.Tensor,
           gt_boxes: torch.Tensor, gt_cls: torch.Tensor,
           gt_mask: torch.Tensor, query_mask: Optional[torch.Tensor] = None,
@@ -295,9 +403,25 @@ def match(pred_boxes: torch.Tensor, pred_logits: torch.Tensor,
     on `match_cost` (its gains overridable), with no gradient; queries
     outside `query_mask` [B,Q] cost `big`."""
     with torch.no_grad():
-        cost = match_cost(pred_boxes, pred_logits, gt_boxes, gt_cls, gt_mask,
-                          big=big, **gains)
-        if query_mask is not None:
-            cost = torch.where(query_mask[:, :, None], cost,
-                               torch.full_like(cost, big))
+        cost = _masked_cost(pred_boxes, pred_logits, gt_boxes, gt_cls,
+                            gt_mask, query_mask, big, gains)
     return hungarian(cost, gt_mask)
+
+
+def match_layers(pred_boxes: torch.Tensor, pred_logits: torch.Tensor,
+                 gt_boxes: torch.Tensor, gt_cls: torch.Tensor,
+                 gt_mask: torch.Tensor,
+                 query_mask: Optional[torch.Tensor] = None,
+                 big: float = 1e6, **gains: float) -> torch.Tensor:
+    """`match` of each of L layers' predictions [L,B,Q,...] against the
+    same GT, solved as one [L*B, Q, G] problem (one `hungarian` call, so
+    one launch and one tape entry): [L,B,G] int32. Each layer's cost is
+    built as `match` builds it, so every layer's assignment is the one
+    its own `match` call gives, bit for bit."""
+    L, B = pred_boxes.shape[:2]
+    with torch.no_grad():
+        cost = torch.cat([_masked_cost(pred_boxes[i], pred_logits[i],
+                                       gt_boxes, gt_cls, gt_mask, query_mask,
+                                       big, gains) for i in range(L)])
+    assign = hungarian(cost, gt_mask.repeat(L, 1))
+    return assign.view(L, B, -1)

@@ -19,7 +19,7 @@ import torch.nn.functional as F
 
 from mo_yolo_tpu_torch.ops.boxes import elementwise_iou
 from mo_yolo_tpu_torch.ops.denoising import dn_positive_index
-from mo_yolo_tpu_torch.ops.matching import match
+from mo_yolo_tpu_torch.ops.matching import match_layers
 
 
 @dataclasses.dataclass(frozen=True)
@@ -124,7 +124,8 @@ def matched_layer_losses(cfg: LossConfig, dec_boxes: torch.Tensor,
                          postfix: str = "") -> Dict[str, torch.Tensor]:
     """The last layer's loss on the given matching plus the other layers'
     aux losses, each re-matched by Hungarian (on the `aux_query_mask`
-    subset when given). dec_boxes/dec_logits [L,B,Q,...].
+    subset when given; the L-1 matchings solved as one batch by
+    `match_layers`). dec_boxes/dec_logits [L,B,Q,...].
     `main_query_mask` limits the last layer's class loss to the queries
     that took part this frame (inactive track slots carry no loss)."""
     L = dec_boxes.shape[0]
@@ -132,10 +133,12 @@ def matched_layer_losses(cfg: LossConfig, dec_boxes: torch.Tensor,
                                  gt_cls, gt_mask, last_assign,
                                  query_mask=main_query_mask), postfix)
     aux = {"loss_class": 0.0, "loss_bbox": 0.0, "loss_giou": 0.0}
+    if L > 1:
+        aux_assign = match_layers(dec_boxes[:-1], dec_logits[:-1], gt_boxes,
+                                  gt_cls, gt_mask, aux_query_mask)
     for i in range(L - 1):
         pb, pl = dec_boxes[i], dec_logits[i]
-        assign_i = match(pb, pl, gt_boxes, gt_cls, gt_mask, aux_query_mask)
-        li = layer_loss(cfg, pb, pl, gt_boxes, gt_cls, gt_mask, assign_i,
+        li = layer_loss(cfg, pb, pl, gt_boxes, gt_cls, gt_mask, aux_assign[i],
                         query_mask=aux_query_mask)
         for k in aux:
             aux[k] = aux[k] + li[k]
