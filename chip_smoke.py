@@ -134,7 +134,21 @@ Phases, each printed as one JSON line:
    against the plain sampler at 320x320, and `train` for 2 epochs x 3
    steps of 4 augmented images (s a step, peak memory, 6 K1, 6 K2 and 3
    JV a step, the second step's host syncs: 0); rtdetr: the same for
-   `RTDETR("detr_track")`, predict and 2 training steps.
+   `RTDETR("detr_track")`, predict and 2 training steps;
+16. segment, pose, classify: the YOLOv8 task heads through
+   `YOLO("yolo_track", task=...)` at 640x640 f32 with TF32 off: segment
+   and pose `predict` over the 12 1080p PNG frames (segment with
+   `masks=True` on both compositions) with one greedy launch an image
+   (NMS over all 8,400 anchors) and nothing else, each greedy call of two
+   frames exactly against the plain version on its conflict matrix (the
+   first frame's matrix timed with both), `predict_step` against the plain
+   suppression, `nms_fixed` with every host sync an error; `val` on 8
+   images of a synthetic polygon or keypoint fixture; classify `val` on a
+   class-subdir tree; every task `train` for 2 epochs x 3 steps of 4
+   images (s a step, peak memory, no kernel launched, the loss in f32
+   without autocast). The greedy phase also holds the kernel to its plain
+   version on the conflict matrices that `nms_fixed` builds for an
+   untrained head's boxes at 1,344 and 8,400 anchors and times it there.
 
 Each phase line carries `at_seconds`, the script's time so far. Then a
 `kernels` line, the card's name and power limit, and as the last
@@ -143,6 +157,7 @@ line `{"ok": true, "device": {...}}`. Any failed check exits non-zero.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import re
@@ -651,6 +666,50 @@ def greedy_inputs(case, b=4, m=GREEDY_M, seed=0, device="cuda"):
     return conflict.to(device), valid.to(device)
 
 
+def nms_inputs(imgsz, b=1, seed=0, device="cuda"):
+    """What `nms_fixed` gets from an untrained YOLOv8 head at `imgsz`
+    (every anchor: 1,344 at 256, 8,400 at 640): each anchor's box its
+    centre +- (7.5 + noise) strides (the DFL expectation of near-equal
+    bins), scores uniform in [0, 1], one class. Returns (boxes xyxy
+    [b,N,4], scores [b,N], cls [b,N])."""
+    import torch
+    g = torch.Generator().manual_seed(seed)
+    anchors, strides = [], []
+    for s in (8, 16, 32):
+        n = imgsz // s
+        gy, gx = torch.meshgrid(torch.arange(n), torch.arange(n),
+                                indexing="ij")
+        anchors.append(torch.stack([gx + 0.5, gy + 0.5], -1).reshape(-1, 2))
+        strides.append(torch.full((n * n,), float(s)))
+    anc, st = torch.cat(anchors), torch.cat(strides)
+    N = len(anc)
+    dist = 7.5 + torch.randn(b, N, 4, generator=g) * 0.3
+    boxes = torch.cat([(anc - dist[..., :2]) * st[:, None],
+                       (anc + dist[..., 2:]) * st[:, None]], -1)
+    scores = torch.rand(b, N, generator=g)
+    cls = torch.zeros(b, N, dtype=torch.long)
+    return boxes.to(device), scores.to(device), cls.to(device)
+
+
+def nms_fixed_conflicts(imgsz, b=1, seed=0, device="cuda", conf=0.001,
+                        iou=0.7):
+    """The conflict matrix and valid mask that `nms_fixed` hands the greedy
+    for `nms_inputs` (scores sorted, same class, dense), taken from
+    `nms_fixed` itself."""
+    from mo_yolo_tpu_torch.models import detect
+    captured, greedy = [], detect.greedy_keep_from_conflicts
+
+    def spy(conflict, valid):
+        captured.append((conflict, valid))
+        return valid                # any keep: only the inputs are kept
+    detect.greedy_keep_from_conflicts = spy
+    try:
+        detect.nms_fixed(*nms_inputs(imgsz, b, seed, device), iou, conf)
+    finally:
+        detect.greedy_keep_from_conflicts = greedy
+    return captured[0]
+
+
 def bound_greedy(conflict, valid):
     """The greedy's least time: the conflict matrix and valid read once,
     keep written once (one byte each); one test a conflict element."""
@@ -660,6 +719,9 @@ def bound_greedy(conflict, valid):
 # past ~1,300 a stream's conflict bits no longer fit in a block's shared
 # memory and the kernel keeps them in global memory
 GREEDY_LARGE_M = (1400, 2048, 4096)
+# the task heads' NMS over every anchor: 1,344 at 256 (the facade's
+# default), 8,400 at 640
+NMS_IMGSZ = (256, 640)
 
 
 def phase_greedy():
@@ -690,6 +752,19 @@ def phase_greedy():
                       f"kept")
             results[f"{case}_m{m}"] = {"kept": int(got.sum()), "exact": True}
             del conflict, valid, got, want
+    # nms_fixed's conflicts of an untrained YOLOv8 head: every anchor at
+    # 256 and 640 (1,344 and 8,400), both on the global-memory path
+    for imgsz in NMS_IMGSZ:
+        conflict, valid = nms_fixed_conflicts(imgsz, b=2, seed=2)
+        got = greedy_keep_from_conflicts(conflict, valid)
+        want = greedy_keep_from_conflicts_torch(conflict, valid)
+        check(torch.equal(got, want), f"greedy nms N={conflict.shape[-1]}: "
+              f"{int((got != want).sum())} differ from the plain version")
+        results[f"nms_n{conflict.shape[-1]}"] = {
+            "kept": int(got.sum()), "valid": int(valid.sum()),
+            "conflicts_per_row": float(conflict.float().sum(-1).mean()),
+            "exact": True}
+        del conflict, valid, got, want
     timings = {}
     for m in (GREEDY_M, 2048):
         conflict, valid = greedy_inputs("frame", b=1, m=m, seed=1)
@@ -701,9 +776,22 @@ def phase_greedy():
                 lambda: greedy_keep_from_conflicts_torch(conflict, valid),
                 iters=20, warmup=3),
             **bound_greedy(conflict, valid)}
+    for imgsz in NMS_IMGSZ:
+        conflict, valid = nms_fixed_conflicts(imgsz, b=1, seed=3)
+        timings[f"nms_n{conflict.shape[-1]}"] = {
+            "ms": time_ms(lambda: greedy_keep_from_conflicts(conflict, valid),
+                          iters=50, warmup=5),
+            "device_ms": device_time_ms(
+                lambda: greedy_keep_from_conflicts(conflict, valid)),
+            "plain_ms": time_ms(
+                lambda: greedy_keep_from_conflicts_torch(conflict, valid),
+                iters=10, warmup=2),
+            **bound_greedy(conflict, valid)}
+        del conflict, valid
     emit("greedy", checks=results, timing=timings)
     return {**timings[f"m{GREEDY_M}"], "max_abs_err": 0.0,
-            "m2048": timings["m2048"]}
+            "m2048": timings["m2048"],
+            **{k: v for k, v in timings.items() if k.startswith("nms_")}}
 
 
 # ---------------------------------------------------------------------- jv
@@ -2185,6 +2273,88 @@ def mot_fixture(root, n_seq=VAL_SEQS, n_frames=VAL_FRAMES, hw=VAL_HW,
     return digests
 
 
+def task_fixture(root, task, n_train=12, n_val=4, hw=(480, 640), nc=5,
+                 n_obj=4, n_kpt=17, seed=0, obj_scale=1.0):
+    """A synthetic dataset for a YOLOv8 task head, written with
+    `write_png` (generated, nothing read from elsewhere); objects span
+    0.12-0.3 of the width and 0.15-0.4 of the height, times `obj_scale`:
+
+    - segment: `root/images/{train,val}/NNNNNN.png` on a noisy gradient,
+      each with `n_obj` star-shaped polygons filled in their class's
+      colour, and `root/labels/...txt` rows `cls x1 y1 ...` (normalized);
+    - pose: boxes with `n_kpt` visible keypoints each (dots), rows `cls cx
+      cy w h kx ky 2 ...`;
+    - classify: `root/{train,val}/class<k>/NNNNNN.png`, a class's colour
+      under noise.
+
+    Returns the dataset yaml's path (segment, pose) or the tree's root."""
+    from mo_yolo_tpu_torch.data.seg_pose_labels import fill_polygon
+    root = Path(root)
+    rng = np.random.default_rng(seed)
+    h, w = hw
+    colours = rng.integers(40, 256, (nc, 3))
+    yy, xx = np.mgrid[0:h, 0:w]
+    for split, n in (("train", n_train), ("val", n_val)):
+        for i in range(n):
+            img = np.stack([xx * 160 // w, yy * 160 // h,
+                            np.full_like(xx, 50)], -1)
+            img = (img + rng.integers(0, 30, img.shape)).astype(np.uint8)
+            if task == "classify":
+                c = i % nc
+                img = np.clip(img // 3 + colours[c] * 2 // 3, 0,
+                              255).astype(np.uint8)
+                d = root / split / f"class{c}"
+                d.mkdir(parents=True, exist_ok=True)
+                write_png(d / f"{i:06d}.png", img)
+                continue
+            rows = []
+            for k in range(n_obj):
+                c = int(rng.integers(0, nc))
+                bw = rng.uniform(0.12, 0.3) * obj_scale * w
+                bh = rng.uniform(0.15, 0.4) * obj_scale * h
+                cx, cy = rng.uniform(bw / 2, w - bw / 2), rng.uniform(
+                    bh / 2, h - bh / 2)
+                if task == "segment":
+                    m = int(rng.integers(5, 12))
+                    ang = np.sort(rng.uniform(0, 2 * np.pi, m))
+                    r = rng.uniform(0.5, 1.0, m)
+                    px = cx + r * np.cos(ang) * bw / 2
+                    py = cy + r * np.sin(ang) * bh / 2
+                    mask = fill_polygon(np.zeros((h, w), np.uint8),
+                                        list(zip(px, py)))
+                    img[mask > 0] = colours[c]
+                    rows.append(" ".join([str(c)] + [
+                        f"{v:.6f}" for xy in zip(px / w, py / h)
+                        for v in xy]))
+                else:
+                    x0, y0 = int(cx - bw / 2), int(cy - bh / 2)
+                    img[y0:y0 + int(bh), x0:x0 + int(bw)] = colours[c]
+                    kx = rng.uniform(cx - bw / 2, cx + bw / 2, n_kpt)
+                    ky = rng.uniform(cy - bh / 2, cy + bh / 2, n_kpt)
+                    for a, b in zip(kx.astype(int), ky.astype(int)):
+                        img[max(b - 1, 0):b + 2, max(a - 1, 0):a + 2] = 255
+                    rows.append(" ".join(
+                        [str(c)] + [f"{v:.6f}" for v in
+                                    (cx / w, cy / h, bw / w, bh / h)] +
+                        [f"{v:.6f}" for a, b in zip(kx / w, ky / h)
+                         for v in (a, b, 2.0)]))
+            for sub, name, body in (("images", f"{i:06d}.png", img),
+                                    ("labels", f"{i:06d}.txt", rows)):
+                d = root / sub / split
+                d.mkdir(parents=True, exist_ok=True)
+                if sub == "images":
+                    write_png(d / name, body)
+                else:
+                    (d / name).write_text("\n".join(body) + "\n")
+    if task == "classify":
+        return str(root)
+    names = ", ".join(f"class{c}" for c in range(nc))
+    (root / "data.yaml").write_text(
+        f"path: {root}\ntrain: images/train\nval: images/val\n"
+        f"nc: {nc}\nnames: [{names}]\n")
+    return str(root / "data.yaml")
+
+
 def phase_val(cfg="yolo_track", imgsz="1536x800", dtype="bfloat16",
               device=None, n_frames=VAL_FRAMES, hw=VAL_HW):
     """Evaluation through `MOTRTrack(...).val` on the synthetic MOT fixture
@@ -3436,6 +3606,285 @@ def _detect_step_kernels(cfg, imgsz, batch, device, model_kw):
     return rec
 
 
+# the YOLOv8 task heads (segment, pose, classify) at yolo_track's full
+# width, 640x640, f32 as the JAX facade runs them
+TASK_IMGSZ, TASK_HW, TASK_EPOCHS, TASK_STEPS, TASK_BATCH = \
+    640, (720, 1280), 2, 3, 4
+TASK_N_VAL = 8
+TASK_PLAIN_ATOL = 1e-5
+
+
+@contextlib.contextmanager
+def no_tf32():
+    """f32 matmuls and convolutions without TF32 inside, as they were
+    after."""
+    import torch
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, \
+            torch.backends.cudnn.allow_tf32 = tf32
+
+
+def _task_checks(m, frames, device):
+    """On `frames` (uint8 HWC, stretched to the model's input): each
+    `nms_fixed` call's greedy keep exactly against the plain version on
+    the same conflict matrix, `predict_step` against itself with the plain
+    suppression (every output within TASK_PLAIN_ATOL of its scale, the
+    kept slots equal), one `nms_fixed` with every host sync an error, and
+    on the card the greedy and its plain version timed on the first
+    frame's conflict matrix."""
+    import torch
+
+    from mo_yolo_tpu_torch.data.letterbox import letterbox
+    from mo_yolo_tpu_torch.models import detect
+    from mo_yolo_tpu_torch.ops.suppress import (
+        greedy_keep_from_conflicts, greedy_keep_from_conflicts_torch)
+    s = int(m.imgsz)
+    xs = [torch.from_numpy(letterbox(f, (s, s), scale_fill=True)[0][None]
+                           ).to(device) for f in frames]
+    calls, first = [], []
+
+    def spy(conflict, valid):
+        keep = greedy_keep_from_conflicts(conflict, valid)
+        same = torch.equal(keep, greedy_keep_from_conflicts_torch(conflict,
+                                                                  valid))
+        first[:] = first or [conflict, valid]
+        calls.append({"n": conflict.shape[-1], "exact": same,
+                      "valid": int(valid.sum()), "kept": int(keep.sum()),
+                      "conflicts": int(conflict.sum())})
+        return keep
+    plain_err, same_kept = 0.0, True
+    for x in xs:
+        detect.greedy_keep_from_conflicts = spy
+        try:
+            got = m.model.predict_step(x)
+        finally:
+            detect.greedy_keep_from_conflicts = greedy_keep_from_conflicts
+        detect.greedy_keep_from_conflicts = greedy_keep_from_conflicts_torch
+        try:
+            want = m.model.predict_step(x)
+        finally:
+            detect.greedy_keep_from_conflicts = greedy_keep_from_conflicts
+        same_kept &= torch.equal(got[1] > 0, want[1] > 0)
+        for g, w in zip(got, want):
+            scale = max(float(w.float().abs().max()), 1e-12)
+            plain_err = max(plain_err,
+                            float((g.float() - w.float()).abs().max()) / scale)
+    check(len(calls) == len(xs) and all(c["exact"] for c in calls),
+          f"task greedy against plain: {calls}")
+    check(same_kept and plain_err <= TASK_PLAIN_ATOL,
+          f"task predict_step against plain suppression: {plain_err}, "
+          f"kept slots equal: {same_kept}")
+    # the greedy on the first frame's own conflict matrix, timed
+    greedy = None
+    if device.type == "cuda":
+        conflict, valid = first
+        greedy = {
+            "n": conflict.shape[-1],
+            "conflicts_per_row": float(conflict.float().sum(-1).mean()),
+            "kept": calls[0]["kept"], "valid": calls[0]["valid"],
+            "ms": time_ms(lambda: greedy_keep_from_conflicts(conflict, valid),
+                          iters=50, warmup=5),
+            "device_ms": device_time_ms(
+                lambda: greedy_keep_from_conflicts(conflict, valid)),
+            "plain_ms": time_ms(
+                lambda: greedy_keep_from_conflicts_torch(conflict, valid),
+                iters=10, warmup=2),
+            **bound_greedy(conflict, valid)}
+    del first[:]
+    boxes, cls_p = m.model(xs[0])[:2]
+    args = (boxes, cls_p.max(-1).values, cls_p.argmax(-1), m.model.iou,
+            m.model.conf, m.model.max_det)
+    syncs = None
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            detect.nms_fixed(*args)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        syncs = 0
+    # where a predicted frame's time goes, on the first frame: the step
+    # (network, NMS, and for segment the masks' composition) and the copy
+    # back of its outputs
+    from mo_yolo_tpu_torch.engine.validator import _to_host
+    sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
+    stage = {"step_ms": [], "copy_ms": []}
+    for _ in range(3):
+        sync()
+        t = time.perf_counter()
+        out = m.model.predict_step(xs[0])
+        if hasattr(m.model, "compose_masks"):
+            out = (*out[:3], m.model.compose_masks(out[0], out[3], out[4]))
+        sync()
+        stage["step_ms"].append(1e3 * (time.perf_counter() - t))
+        t = time.perf_counter()
+        _to_host(*out)
+        stage["copy_ms"].append(1e3 * (time.perf_counter() - t))
+    return {"greedy_calls": calls, "greedy_on_path": greedy,
+            "plain_suppression_rel_err": plain_err,
+            "kept_slots_equal": same_kept, "nms_host_syncs": syncs,
+            **{k: float(np.median(v)) for k, v in stage.items()}}
+
+
+def phase_task(task, cfg="yolo_track", imgsz=TASK_IMGSZ, device=None,
+               hw=VAL_HW, n_frames=CLI_FRAMES, fixture_hw=TASK_HW,
+               epochs=TASK_EPOCHS, steps=TASK_STEPS, batch=TASK_BATCH,
+               n_val=TASK_N_VAL, **model_kw):
+    """A YOLOv8 task head through `YOLO(cfg, task=task)` (`_TaskModel`),
+    f32 with TF32 off (each training step's loss checked to run so, with
+    no autocast):
+
+    - segment and pose: `predict` over `n_frames` 1080p PNG frames (the
+      MOT fixture's sequence; segment with `masks=True` on the default
+      composition, then again with `retina_masks`): frames/s, one greedy
+      launch an image and nothing else; the checks of `_task_checks` on
+      two frames; `val` on `n_val` images of a synthetic polygon or
+      keypoint fixture (`task_fixture`): finite metrics, one greedy launch
+      an image;
+    - classify: `val` on a class-subdir tree of generated PNGs;
+    - every task: `train` for `epochs` x `steps` steps of `batch` images
+      (s a step, peak memory, each step's launches: none of the kernels).
+    """
+    import tempfile
+
+    import torch
+
+    from mo_yolo_tpu_torch import YOLO
+    from mo_yolo_tpu_torch.train import task_trainers as tt
+    (ROOT / "build").mkdir(exist_ok=True)
+    rec = {"task": task, "cfg": cfg, "imgsz": imgsz, "dtype": "float32",
+           "tf32": False}
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp, \
+            no_tf32():
+        tmp = Path(tmp)
+        data = task_fixture(tmp / task, task,
+                            n_train=steps * batch, n_val=n_val,
+                            hw=fixture_hw)
+        m = YOLO(cfg, task=task, imgsz=imgsz, device=device, **model_kw)
+        dev = m.device
+        on_card = dev.type == "cuda"
+        sync = torch.cuda.synchronize if on_card else (lambda: None)
+        rec["params"] = sum(p.numel() for p in m.model.parameters())
+        rec["card"] = card_line() if on_card else None
+
+        def launched(what, want_greedy):
+            c = counts()
+            check(not on_card or (c["greedy_keep"] == want_greedy and
+                                  sum(c.values()) == want_greedy),
+                  f"{task} {what}: launches {c}, expected {want_greedy} "
+                  f"greedy and nothing else")
+            return c
+
+        if task != "classify":
+            mot_fixture(tmp / "raw", n_seq=1, n_frames=n_frames, hw=hw)
+            seq = tmp / "raw" / "images" / "train" / "MOT17-01" / "img1"
+            passes = [("predict", {"masks": task == "segment"})]
+            if task == "segment":
+                passes.append(("predict_retina", {"masks": True}))
+            for name, kw in passes:
+                m.model.retina_masks = name == "predict_retina"
+                reset_counts()
+                sync()
+                # each frame's time inside the generator; the checks on
+                # its outputs stand outside it
+                secs, kept = [], []
+                frames = iter(m.predict(str(seq), **kw))
+                while True:
+                    t = time.perf_counter()
+                    out = next(frames, None)
+                    if out is None:
+                        break
+                    secs.append(time.perf_counter() - t)
+                    out = out[1]
+                    check(all(np.isfinite(o).all() for o in out),
+                          f"{task} {name}: non-finite outputs")
+                    kept.append(int((out[1] > 0).sum()))
+                check(len(secs) == n_frames,
+                      f"{task} {name}: {len(secs)} frames")
+                rec[name] = {
+                    "frames": n_frames,
+                    "frames_per_s": n_frames / sum(secs),
+                    "steady_frames_per_s": (n_frames - 2) / sum(secs[2:]),
+                    "kept_per_frame": float(np.mean(kept)),
+                    "launches": launched(name, n_frames)}
+            m.model.retina_masks = False
+            from mo_yolo_tpu_torch.data.loaders import load_image
+            rec["checks"] = _task_checks(
+                m, [load_image(p) for p in sorted(seq.glob("*.png"))[:2]],
+                dev)
+        reset_counts()
+        sync()
+        t = time.perf_counter()
+        metrics = m.val(data)
+        sync()
+        secs = time.perf_counter() - t
+        for k, v in metrics.items():
+            check(math.isfinite(v), f"{task} val: {k} = {v}")
+        rec["val"] = {"images": n_val, "seconds": secs,
+                      "images_per_s": n_val / secs, "metrics": metrics,
+                      "launches": launched(
+                          "val", 0 if task == "classify" else n_val)}
+
+        steps_rec, precision = [], set()
+        make = tt.make_task_train_step
+
+        def counted_make(model, loss_fn, *a, **kw):
+            def watched(*la, **lkw):
+                precision.add((str(next(model.parameters()).dtype),
+                               torch.is_autocast_enabled(dev.type)))
+                return loss_fn(*la, **lkw)
+            init_fn, step_fn = make(model, watched, *a, **kw)
+
+            def counted(*sa, **skw):
+                reset_counts()
+                sync()
+                t0 = time.perf_counter()
+                out = step_fn(*sa, **skw)
+                sync()
+                steps_rec.append((counts(), time.perf_counter() - t0))
+                return out
+            return init_fn, counted
+        tt.make_task_train_step = counted_make
+        try:
+            if on_card:
+                torch.cuda.reset_peak_memory_stats()
+            t = time.perf_counter()
+            out = m.train(data, epochs=epochs, batch=batch, log_every=1,
+                          val=False, save_dir=str(tmp / "run"))
+            train_s = time.perf_counter() - t
+        finally:
+            tt.make_task_train_step = make
+        check(len(steps_rec) == epochs * steps and
+              math.isfinite(out["final_loss"]),
+              f"{task} train: {len(steps_rec)} steps, final loss "
+              f"{out['final_loss']}")
+        for c, _ in steps_rec:
+            check(sum(c.values()) == 0, f"{task} train: a step launched {c}")
+        check(precision == {("torch.float32", False)},
+              f"{task} train: the loss ran at {precision} (dtype, "
+              f"autocast), not f32")
+        step_s = [s_ for _, s_ in steps_rec]
+        rec["train"] = {
+            "epochs": epochs, "steps": len(steps_rec), "batch": batch,
+            "seconds": train_s, "step_seconds": step_s,
+            "median_step_seconds": float(np.median(step_s)),
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9
+            if on_card else None,
+            "launches_per_step": steps_rec[0][0],
+            "final_loss": out["final_loss"]}
+        del m
+        if on_card:
+            torch.cuda.empty_cache()
+    emit(task, **rec)
+    return rec
+
+
 def main() -> int:
     if not (ROOT / "mo_yolo_tpu_torch" / "ops" / "csrc").is_dir():
         print("chip_smoke.py: the mo_yolo_tpu_torch package is not beside "
@@ -3487,6 +3936,7 @@ def main() -> int:
     detect = phase_detect()
     rtdetr = phase_detect("RTDETR", DETECT_MODELS[1], epochs=1, steps=2,
                           validate=False)
+    tasks = {t: phase_task(t) for t in ("segment", "pose", "classify")}
     phase_train_in_context()
     phase_train_in_context(max_gt=256, num_denoising=100)
     launches = train["launches_total"]
@@ -3537,8 +3987,21 @@ def main() -> int:
         "launches_slice_configs": configs["launches"]["greedy_keep"],
         "launches_detect_predict": detect["predict"]["launches"][
             "greedy_keep"],
+        "launches_segment_predict": tasks["segment"]["predict"]["launches"][
+            "greedy_keep"],
+        "launches_segment_val": tasks["segment"]["val"]["launches"][
+            "greedy_keep"],
+        "launches_pose_predict": tasks["pose"]["predict"]["launches"][
+            "greedy_keep"],
+        "launches_task_train_step": sum(
+            tasks[t]["train"]["launches_per_step"]["greedy_keep"]
+            for t in tasks),
         **{k: greedy[k] for k in keys},
         "global_path_m2048": {k: greedy["m2048"][k] for k in keys[1:]},
+        **{f"nms_{k[4:]}": {f: greedy[k][f] for f in keys[1:]}
+           for k in greedy if k.startswith("nms_n")},
+        "nms_segment_path": {f: tasks["segment"]["checks"]["greedy_on_path"][f]
+                             for f in ("n", "conflicts_per_row") + keys[1:]},
         "library_ms": None}, {
         "name": "jv_assign", "route": "cuda",
         "source": f"{csrc}/jv_assign.cu",

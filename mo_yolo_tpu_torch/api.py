@@ -18,10 +18,18 @@ counterparts of those in `mo_yolo_tpu/api.py`).
     det.train("data/mot.yaml", epochs=2, batch=4, augment=True)
     metrics = RTDETR("detr_track").val("data/mot.yaml")   # mAP
 
+    from mo_yolo_tpu_torch import YOLO
+    seg = YOLO("yolo_track", task="segment", imgsz=640)   # also pose, classify
+    for path, res in seg.predict("frames/", as_results=True):
+        print(res.boxes_xyxy, res.masks.shape)
+    seg.train("data/seg.yaml", epochs=2, batch=4)         # polygon labels
+    metrics = seg.val("data/seg.yaml")        # box and mask mAP
+
 Export writes the port's formats, `params` (`save`) and `pt` (an
-upstream-format checkpoint). The JAX package's serialized steps
-(`stablehlo`, `jaxexport`) and TensorFlow formats have no counterpart yet:
-they raise, naming the ROADMAP item that carries the port's own.
+upstream-format checkpoint), and for the task models `torchscript`. The
+JAX package's serialized steps (`stablehlo`, `jaxexport`) and TensorFlow
+formats have no counterpart yet: they raise, naming the ROADMAP item that
+carries the port's own.
 """
 
 from __future__ import annotations
@@ -35,6 +43,7 @@ import torch
 
 from mo_yolo_tpu_torch.engine.predictor import TrackPredictor
 from mo_yolo_tpu_torch.engine.results import TrackResults
+from mo_yolo_tpu_torch.models.heads_extra import TASK_MODELS
 from mo_yolo_tpu_torch.models.tracker import TrackerConfig
 from mo_yolo_tpu_torch.models.tracking_model import build_tracking_model
 from mo_yolo_tpu_torch.utils.callbacks import CallbackBus
@@ -277,7 +286,9 @@ class _ModelFacade(_CallbackMixin, _TuneMixin):
         if isinstance(cfg, (str, Path)) and Path(cfg).is_file():
             cfg = str(Path(cfg).resolve())
         kw = {k: v for k, v in self.model_kw.items()
-              if isinstance(v, (int, float, str, bool))}
+              if isinstance(v, (int, float, str, bool)) or (
+                  isinstance(v, (tuple, list)) and
+                  all(isinstance(e, (int, float)) for e in v))}
         meta = {"task": self.task, "cfg": cfg, "imgsz": self.imgsz,
                 "names": {str(k): v for k, v in self.names.items()},
                 "model_kw": kw, "nc": self.nc, "dtype": self.dtype,
@@ -308,7 +319,9 @@ class _ModelFacade(_CallbackMixin, _TuneMixin):
         self.nc = meta.get("nc")
         self.dtype = meta.get("dtype", "float32")
         self.seed = meta.get("seed", 0)
-        self.model_kw = dict(meta.get("model_kw") or {})
+        # JSON gives lists where tuples were saved (kpt_shape)
+        self.model_kw = {k: tuple(v) if isinstance(v, list) else v
+                         for k, v in (meta.get("model_kw") or {}).items()}
         if meta.get("tracker"):
             self.model_kw["tracker"] = TrackerConfig(**meta["tracker"])
         self.model = self._build()
@@ -626,24 +639,207 @@ class RTDETR(Detector):
         super().__init__(model, **kw)
 
 
-# the JAX package's other task facades and the ROADMAP item that ports them
-LATER_TASK_ITEMS = {"segment": "7c", "pose": "7c", "classify": "7c"}
+class _TaskModel(_ModelFacade):
+    """The segment, pose and classify facade on the card (the port's copy
+    of `_TaskModel` in `mo_yolo_tpu/api.py`): `task` names the model
+    (`models/heads_extra.py`), built from `model` (a config or a saved
+    model) with seeded random weights at `imgsz` (square), f32 as the JAX
+    facade runs it. `conf`, `iou`, `max_det` and `agnostic_nms` reach the
+    on-device NMS, `retina_masks` picks the mask composition, `kpt_shape`
+    the pose head's keypoints, `dropout` the classifier's.
+
+    `predict` yields fixed-slot outputs a frame (or TrackResults),
+    `val` scores box and mask or keypoint mAP (classify: top-1 and top-5
+    accuracy on a class-subdir tree), `train` runs the task's trainer
+    (`train/task_trainers.py`), `tune` searches its loss gains, `export`
+    writes `params`, `pt` or `torchscript`."""
+
+    _flops_per = "image"
+    _TUNE_TOP = ("lr",)          # the trainers read the rest from hyp
+
+    def __init__(self, task: str, model: Union[str, Dict[str, Any]] =
+                 "yolo_track", nc: Optional[int] = None, imgsz: int = 256,
+                 seed: int = 0, kpt_shape=(17, 3), agnostic_nms: bool = False,
+                 dropout: float = 0.0, conf: float = 0.001, iou: float = 0.7,
+                 max_det: int = 100, retina_masks: bool = False,
+                 dtype: str = "float32", device=None,
+                 names: Optional[Dict[int, str]] = None):
+        if task not in TASK_MODELS:
+            raise ValueError(f"task {task!r} is not one of "
+                             f"{', '.join(TASK_MODELS)}")
+        self.task = task
+        self._tune_save_dir = f"runs/{task}/tune"
+        nms = dict(max_det=max_det, conf=conf, iou=iou, agnostic=agnostic_nms)
+        kw = {"segment": dict(nms, retina_masks=retina_masks),
+              "pose": dict(nms, kpt_shape=tuple(kpt_shape)),
+              "classify": dict(dropout=dropout)}[task]
+        super().__init__(model, nc=nc, imgsz=imgsz, dtype=dtype, seed=seed,
+                         device=device, names=names, **kw)
+
+    def _build(self):
+        from mo_yolo_tpu_torch.models.heads_extra import build_task_model
+        return build_task_model(self.task, self.cfg, nc=self.nc,
+                                dtype=self.dtype, device=self.device,
+                                seed=self.seed, **self.model_kw)
+
+    def _fresh_for_tune(self, seed: int = 0) -> "_TaskModel":
+        kw = dict(self.model_kw)
+        if "agnostic" in kw:
+            kw["agnostic_nms"] = kw.pop("agnostic")
+        return _TaskModel(self.task, self.cfg, nc=self.nc, imgsz=self.imgsz,
+                          dtype=self.dtype, seed=seed, device=self.device,
+                          names=self.names, **kw)
+
+    def _step_flops(self, hw) -> int:
+        from mo_yolo_tpu_torch.utils.profiling import count_flops
+        x = torch.zeros((1, *hw, 3), dtype=torch.uint8, device=self.device)
+        return count_flops(getattr(self.model, "predict_step", self.model), x)
+
+    def _tune_space(self, space):
+        """Only the keys the task trainers read: lr and the loss gains
+        (pose: also pose and kobj; classify: lr and label smoothing)."""
+        if space is not None:
+            return dict(space)
+        if self.task == "classify":
+            return {"lr": (1e-5, 1e-1, "log"), "label_smoothing": (0.0, 0.1)}
+        sp = {"lr": (1e-5, 1e-1, "log"), "box": (2.0, 20.0),
+              "cls": (0.2, 4.0), "dfl": (0.5, 3.0)}
+        if self.task == "pose":
+            sp.update(pose=(2.0, 30.0), kobj=(0.5, 2.0))
+        return sp
+
+    def _export_impl(self, fmt: str = "params", path: Optional[str] = None,
+                     half: bool = False, optimize: bool = False, **kw) -> str:
+        """`params` and `pt` as the other facades; `torchscript` traces the
+        model's forward without NMS (`utils/torch_export.export_torchscript`,
+        `optimize` for the mobile interpreter)."""
+        path = path or f"{self.task}_export"
+        if fmt == "torchscript":
+            from mo_yolo_tpu_torch.utils.torch_export import \
+                export_torchscript
+            return export_torchscript(self.model, path, self.imgsz,
+                                      task=self.task, names=self.names,
+                                      half=half, optimize=optimize)
+        return super()._export_impl(fmt, path, half=half, optimize=optimize,
+                                    **kw)
+
+    @property
+    def trainer_cls(self):
+        """The task's trainer class (`train/task_trainers.py`)."""
+        from mo_yolo_tpu_torch.train import task_trainers as tt
+        return {"segment": tt.SegTrainer, "pose": tt.PoseTrainer,
+                "classify": tt.ClassifyTrainer}[self.task]
+
+    def train(self, data: str, **kw) -> Dict[str, float]:
+        """Train on a dataset yaml of polygon (segment) or keypoint (pose)
+        labels, or a class-subdir tree (classify), through the task's
+        trainer, which takes `kw` (`epochs`, `batch`, `lr`, `max_gt`,
+        `hyp`, `mask_ratio`, `overlap_mask`, ...). `self.model` then holds
+        the best checkpoint's EMA weights."""
+        t = self.trainer_cls(self, data, **kw)
+        t.callbacks = _merged_bus(t.callbacks, self.callbacks)
+        return t.run()
+
+    def val(self, data) -> Dict[str, float]:
+        """Segment: box and mask mAP; pose: box and OKS mAP (each on a
+        dataset yaml's val split or an image list); classify: top-1 and
+        top-5 accuracy on a class-subdir tree."""
+        from mo_yolo_tpu_torch.engine import validator as v
+        if self.task == "classify":
+            return v.classify_accuracy(self.model, data, self.imgsz,
+                                       callbacks=self.callbacks)
+        if isinstance(data, str):
+            from mo_yolo_tpu_torch.data.dataset import load_dataset_yaml
+            d = load_dataset_yaml(data)
+            files = _split_files(d, "val", data)
+            self.names = self.names or dict(d.get("names") or {})
+        else:
+            files = list(data)
+        cls = v.SegmentationValidator if self.task == "segment" \
+            else v.PoseValidator
+        return cls(self.model, imgsz=self.imgsz,
+                   callbacks=self.callbacks)(files)
+
+    def predict(self, source, masks: bool = False, as_results: bool = False):
+        """(path, outputs) a frame over image files (decoded on two threads
+        ahead), a `.npy` stack or uint8 HWC frames, each stretched
+        to `imgsz`. Outputs are the fixed-slot arrays of `predict_step`
+        (one copy back a frame): segment (boxes, scores, cls, coef,
+        protos), with `masks=True` (boxes, scores, cls, masks [1,S,H,W] at
+        input resolution, `retina_masks` picking the composition); pose
+        (boxes, scores, cls, keypoints); classify logits [1, nc]. With
+        `as_results=True` each is a TrackResults in original pixels with
+        its `masks`, `keypoints` or `probs`."""
+        from mo_yolo_tpu_torch.data.letterbox import letterbox
+        from mo_yolo_tpu_torch.engine.predictor import _frames
+        from mo_yolo_tpu_torch.engine.validator import _to_host
+        m, s = self.model, int(self.imgsz)
+        self.callbacks.fire("on_predict_start", predictor=self, model=self)
+        try:
+            for n, (path, img) in enumerate(_frames(source, workers=2)):
+                x = torch.from_numpy(letterbox(img, (s, s), scale_fill=True)[0]
+                                     [None]).to(self.device)
+                if self.task == "classify":
+                    with torch.no_grad():
+                        out = _to_host(m(x))[0]
+                else:
+                    out = m.predict_step(x)
+                    if self.task == "segment" and (masks or as_results):
+                        out = (*out[:3], m.compose_masks(out[0], out[3],
+                                                         out[4]))
+                    out = tuple(_to_host(*out))
+                yield path, (self._to_results(out, img, path) if as_results
+                             else out)
+                self.callbacks.fire("on_predict_batch_end", predictor=self,
+                                    model=self, step=n)
+        finally:
+            self.callbacks.fire("on_predict_end", predictor=self, model=self)
+
+    __call__ = predict
+
+    def _to_results(self, out, img, path) -> TrackResults:
+        """Fixed-slot outputs -> TrackResults in original pixels: the kept
+        slots, boxes and keypoints scaled back per axis."""
+        import numpy as np
+        oh, ow = img.shape[:2]
+        sx, sy = ow / self.imgsz, oh / self.imgsz
+        common = dict(orig_shape=(oh, ow), path=str(path), orig_img=img,
+                      names=self.names)
+        if self.task == "classify":
+            logits = np.asarray(out[0], np.float64)
+            e = np.exp(logits - logits.max())
+            z = np.zeros(0, int)
+            return TrackResults(boxes_xyxy=np.zeros((0, 4)), conf=z,
+                                cls=z, track_id=z, probs=e / e.sum(),
+                                **common)
+        bb, ss, cc = out[0][0], out[1][0], out[2][0]
+        keep = ss > 0
+        extra = {}
+        if self.task == "segment":
+            extra["masks"] = out[3][0][keep]
+        else:
+            kp = out[3][0][keep].copy()
+            kp[..., 0] *= sx
+            kp[..., 1] *= sy
+            extra["keypoints"] = kp
+        return TrackResults(
+            boxes_xyxy=bb[keep] * np.asarray([sx, sy, sx, sy], np.float32),
+            conf=ss[keep], cls=cc[keep].astype(int),
+            track_id=np.full(int(keep.sum()), -1, int), **extra, **common)
 
 
 class YOLO:
     """The facade for a task (the JAX `YOLO`): "track" gives `MOTRTrack`,
-    "detect" `Detector`, "rtdetr" `RTDETR`; the other tasks raise, naming
-    the ROADMAP item that brings them."""
+    "detect" `Detector`, "rtdetr" `RTDETR`, "segment", "pose" and
+    "classify" `_TaskModel`."""
 
     def __new__(cls, model: Union[str, Dict[str, Any]] = "yolo_track",
                 task: str = "track", **kw):
         facades = {"track": MOTRTrack, "detect": Detector, "rtdetr": RTDETR}
         if task in facades:
             return facades[task](model, **kw)
-        if task in LATER_TASK_ITEMS:
-            raise NotImplementedError(
-                f"task {task!r} is not in the port yet: it comes with "
-                f"ROADMAP Queue 1 item {LATER_TASK_ITEMS[task]}")
+        if task in TASK_MODELS:
+            return _TaskModel(task, model, **kw)
         raise NotImplementedError(
             f"task {task!r} is not a task of mo_yolo_tpu (available: "
-            f"{sorted([*facades, *LATER_TASK_ITEMS])})")
+            f"{sorted([*facades, *TASK_MODELS])})")

@@ -12,10 +12,15 @@
     python -m mo_yolo_tpu_torch detect predict model=yolo_mot source=imgs/
     python -m mo_yolo_tpu_torch detect train model=yolo_mot data=MOT.yaml
     python -m mo_yolo_tpu_torch rtdetr val data=MOT.yaml
+    python -m mo_yolo_tpu_torch segment predict source=imgs/ save=true
+    python -m mo_yolo_tpu_torch pose train data=pose.yaml epochs=2 batch=4
+    python -m mo_yolo_tpu_torch classify val data=classes/ imgsz=224
 
-Tasks: track, detect (RT-DETR-style detection, `yolo_track` by default)
-and rtdetr (the same on `detr_track`); the other tasks of the JAX CLI
-exit, naming the ROADMAP items that bring them. Modes: predict, track
+Tasks: track, detect (RT-DETR-style detection, `yolo_track` by default),
+rtdetr (the same on `detr_track`), and segment, pose and classify (the
+YOLOv8 task heads on `yolo_track`, f32, at imgsz 256 unless given; predict,
+val, train, tune, export); nas, sam and fastsam exit, naming the ROADMAP
+item that brings them. Modes: predict, track
 (for the track task the same as predict: the tracker runs inside the step;
 for detect and rtdetr it needs the classic trackers and exits), val,
 train, tune, export; bench and benchmark exit, naming the benchmark
@@ -56,10 +61,10 @@ MODES = ("train", "val", "predict", "track", "export", "tune", "bench",
 SPECIAL = ("checks", "version", "settings", "cfg", "copy-cfg")
 # the tasks of the JAX CLI that the port has not yet, and their ROADMAP
 # Queue 1 items
-LATER_TASKS = {"segment": "7c", "pose": "7c", "classify": "7c", "nas": "8",
-               "sam": "8", "fastsam": "8"}
+LATER_TASKS = {"nas": "8", "sam": "8", "fastsam": "8"}
 DEFAULT_MODELS = {"track": "yolo_track", "detect": "yolo_track",
-                  "rtdetr": "detr_track"}
+                  "rtdetr": "detr_track", "segment": "yolo_track",
+                  "pose": "yolo_track", "classify": "yolo_track"}
 
 # keys that go into the trainer's `hyp` dict when they are not arguments
 # of the trainer (augmentation, loss gains, optimizer knobs)
@@ -237,8 +242,8 @@ def main(argv=None) -> int:
     if task in LATER_TASKS:
         raise SystemExit(
             f"task {task!r} is not in the port yet: it comes with ROADMAP "
-            f"Queue 1 item {LATER_TASKS[task]}; the port runs the track, "
-            f"detect and rtdetr tasks")
+            f"Queue 1 item {LATER_TASKS[task]}; the port runs the "
+            f"{', '.join(t for t in TASKS if t not in LATER_TASKS)} tasks")
     if task != "track" and mode == "track":
         raise SystemExit(
             f"{task} track runs the classic trackers (BYTETracker, "
@@ -260,8 +265,10 @@ def main(argv=None) -> int:
         base.pop("mode", None)
         kv = {**{k: v for k, v in base.items() if v is not None}, **kv}
 
+    # the YOLOv8 task heads run through `api._TaskModel`
+    from mo_yolo_tpu_torch.models.heads_extra import TASK_MODELS
     model_arg = kv.pop("model", None) or DEFAULT_MODELS[task]
-    imgsz = kv.pop("imgsz", 640)
+    imgsz = kv.pop("imgsz", 256 if task in TASK_MODELS else 640)
     device = kv.pop("device", None)
     device = None if device in (None, "", "None") else device_arg(device)
     if kv.pop("dnn", False):
@@ -278,6 +285,8 @@ def main(argv=None) -> int:
         resolve_device(device)
     except RuntimeError as e:       # no card and no device=cpu
         raise SystemExit(f"mo_yolo_tpu_torch: {e}") from e
+    if task in TASK_MODELS:
+        return _task_mode(task, mode, model_arg, imgsz, device, kv)
     cls = {"track": api.MOTRTrack, "detect": api.Detector,
            "rtdetr": api.RTDETR}[task]
     m = cls(model_arg, imgsz=imgsz, dtype=kv.pop("dtype", "bfloat16"),
@@ -335,6 +344,64 @@ def main(argv=None) -> int:
     elif mode == "export":
         out = m.export(fmt=kv.pop("format", "params"),
                        path=kv.pop("path", "model_export"),
+                       **route_kwargs(kv, m._export_impl, allow_hyp=False))
+        LOGGER.info(f"exported to {out}")
+    return 0
+
+
+def _task_mode(task: str, mode: str, model_arg, imgsz, device,
+               kv: Dict[str, Any]) -> int:
+    """segment, pose and classify through `api._TaskModel`: the facade's
+    own keys (conf, iou, max_det, kpt_shape, ...) build it, the rest go to
+    the mode."""
+    import inspect
+
+    from mo_yolo_tpu_torch import api
+    from mo_yolo_tpu_torch.train import task_trainers as tt
+    init = set(inspect.signature(api._TaskModel.__init__).parameters) - \
+        {"self", "task", "model", "imgsz", "device"}
+    m = api._TaskModel(task, model_arg, imgsz=imgsz, device=device,
+                       **{k: kv.pop(k) for k in list(kv) if k in init})
+    trainer = m.trainer_cls
+    if mode == "train":
+        out = m.train(kv.pop("data"), **route_kwargs(
+            kv, trainer.__init__, tt._TaskTrainer.__init__))
+        LOGGER.info(f"{task} training done: {out}")
+    elif mode == "tune":
+        out = m.tune(kv.pop("data"), **route_kwargs(
+            kv, m.tune, trainer.__init__, tt._TaskTrainer.__init__))
+        LOGGER.info(f"tune best fitness {out['best_fitness']:.4g} "
+                    f"(trial {out['best_trial']}): {out['best_hyp']}")
+    elif mode == "val":
+        _log_metrics(m.val(kv.pop("data")))
+    elif mode == "predict":
+        source = kv.pop("source")
+        save, save_txt = bool(kv.pop("save", False)), \
+            bool(kv.pop("save_txt", False))
+        save_conf = bool(kv.pop("save_conf", False))
+        fmt = str(kv.pop("save_format", "png"))
+        save_dir = Path(kv.pop("save_dir", None) or
+                        increment_path(f"runs/{task}/predict"))
+        route_kwargs(kv, m.predict, allow_hyp=False)   # warns on the rest
+        n = 0
+        for path, r in m.predict(source, as_results=True):
+            if r.probs is not None:
+                top = int(r.probs.argmax())
+                LOGGER.info(f"{path}: top1 class {top} "
+                            f"({float(r.probs[top]):.3f})")
+            else:
+                LOGGER.info(f"{path}: {len(r)} detections")
+            stem = Path(str(path)).stem
+            if save:
+                r.save(save_dir / f"{stem}.{fmt}")
+            if save_txt and r.probs is None:
+                r.save_txt(save_dir / "labels" / f"{stem}.txt",
+                           save_conf=save_conf)
+            n += 1
+        LOGGER.info(f"processed {n} frames")
+    elif mode == "export":
+        out = m.export(fmt=kv.pop("format", "params"),
+                       path=kv.pop("path", f"{task}_export"),
                        **route_kwargs(kv, m._export_impl, allow_hyp=False))
         LOGGER.info(f"exported to {out}")
     return 0

@@ -1,4 +1,4 @@
-"""Frame decoding without PIL or cv2: PNG and JPEG files to raw uint8
+"""Frame decoding without PIL or cv2: PNG, JPEG and BMP files to raw uint8
 [H, W, 3] RGB frames, as the JAX package's `load_image` returns them
 through PIL's `.convert("RGB")` (`mo_yolo_tpu/data/loaders.py:47`).
 `data/loaders.load_image` picks the decoder by the file's first bytes.
@@ -12,6 +12,10 @@ through PIL's `.convert("RGB")` (`mo_yolo_tpu/data/loaders.py:47`).
 - JPEG: libjpeg through the same C file, built with it at first use.
   Where `jpeglib.h` or libjpeg is missing, decoding a JPEG raises and names
   what is missing.
+- BMP: uncompressed 24- and 32-bit images (BI_RGB, or BI_BITFIELDS with
+  byte-aligned masks), bottom-up or top-down, rows padded to 4 bytes, in
+  numpy; the fourth byte of a 32-bit pixel is dropped, as PIL's RGB
+  conversion drops it. Palette, 16-bit and run-length BMPs raise.
 The C code is built by `utils/cuda_build.load_c` at first use, never at
 import.
 """
@@ -30,6 +34,7 @@ from mo_yolo_tpu_torch.utils import cuda_build
 
 PNG_MAGIC = b"\x89PNG\r\n\x1a\n"
 JPEG_MAGIC = b"\xff\xd8"
+BMP_MAGIC = b"BM"
 SRC = Path(__file__).resolve().parent / "csrc" / "decode.c"
 # PNG colour type -> samples a pixel
 _SAMPLES = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
@@ -119,4 +124,43 @@ def decode_jpeg(path: Union[str, Path]) -> np.ndarray:
     out = np.empty((h.value, w.value, 3), np.uint8)
     if fn(name, out.ctypes.data, ctypes.byref(w), ctypes.byref(h)) != 0:
         raise ValueError(f"{path}: {last().decode(errors='replace')}")
+    return out
+
+
+def decode_bmp(data: bytes) -> np.ndarray:
+    """The BMP file's bytes -> uint8 [H, W, 3] RGB."""
+    if data[:2] != BMP_MAGIC or len(data) < 54:
+        raise ValueError("not a BMP file")
+    offset, header = struct.unpack("<I", data[10:14])[0], \
+        struct.unpack("<I", data[14:18])[0]
+    if header < 40:
+        raise ValueError(f"BMP with a {header}-byte core header is not taken")
+    w, h, _, bits, comp = struct.unpack("<iiHHI", data[18:34])
+    if bits not in (24, 32) or comp not in (0, 3) or (comp == 3 and
+                                                     bits != 32):
+        raise ValueError(f"BMP of {bits} bits, compression {comp}, is not "
+                         f"taken: only uncompressed 24- and 32-bit images")
+    if w <= 0 or h == 0:
+        raise ValueError(f"BMP of {w} x {h} pixels")
+    rows, step = abs(h), bits // 8
+    stride = (w * step + 3) // 4 * 4
+    if len(data) < offset + rows * stride:
+        raise ValueError(f"BMP data holds {len(data) - offset} bytes, "
+                         f"{rows} rows of {stride} need {rows * stride}")
+    px = np.frombuffer(data, np.uint8, rows * stride, offset).reshape(
+        rows, stride)[:, :w * step].reshape(rows, w, step)
+    if h > 0:                       # rows stored bottom-up
+        px = px[::-1]
+    if comp == 0:
+        return np.ascontiguousarray(px[..., 2::-1])
+    # BI_BITFIELDS: red, green and blue masks after the 40-byte header
+    masks = struct.unpack("<III", data[54:66])
+    word = px.astype(np.uint32) << np.arange(0, 32, 8, dtype=np.uint32)
+    word = word.sum(-1, dtype=np.uint32)
+    out = np.empty((rows, w, 3), np.uint8)
+    for c, m in enumerate(masks):
+        shift = (m & -m).bit_length() - 1
+        if m == 0 or m >> shift != 0xFF:
+            raise ValueError(f"BMP channel mask {m:#x} is not one byte")
+        out[..., c] = (word >> shift) & 0xFF
     return out

@@ -3,8 +3,9 @@
 `ArraySource`, `TensorSource` and `make_source` from
 `mo_yolo_tpu/data/loaders.py`).
 
-Images decode through the port's own decoder (`data/decode.py`: PNG and
-JPEG; `.npy` frames through numpy), not PIL. Video files, URL streams,
+Images decode through the port's own decoder (`data/decode.py`: PNG,
+JPEG and uncompressed BMP; `.npy` frames through numpy), not PIL. TIFF
+and WebP frames raise, naming the codec library they need. Video files, URL streams,
 webcams and screenshots raise: the JAX package reads them through an
 ffmpeg binary, a camera and a display, which the machine with the card
 does not have; PIL images are not taken either (no PIL there).
@@ -20,11 +21,11 @@ from typing import Iterator, List, Sequence, Tuple, Union
 import numpy as np
 import torch
 
-from mo_yolo_tpu_torch.data.decode import (JPEG_MAGIC, PNG_MAGIC,
-                                           decode_jpeg, decode_png)
+from mo_yolo_tpu_torch.data.decode import (BMP_MAGIC, JPEG_MAGIC, PNG_MAGIC,
+                                           decode_bmp, decode_jpeg, decode_png)
 
-# the JAX package's list, so that a folder lists the same files; only PNG
-# and JPEG among them decode here
+# the JAX package's list, so that a folder lists the same files; PNG, JPEG
+# and BMP among them decode here
 IMG_EXTS = {".bmp", ".jpeg", ".jpg", ".png", ".tif", ".tiff", ".webp"}
 VID_EXTS = {".asf", ".avi", ".gif", ".m4v", ".mkv", ".mov", ".mp4",
             ".mpeg", ".mpg", ".ts", ".webm", ".wmv"}
@@ -54,8 +55,8 @@ def list_images(source: Union[str, Path]) -> List[str]:
 
 
 def load_image(path: Union[str, Path]) -> np.ndarray:
-    """Decode one PNG, JPEG or `.npy` frame to HWC uint8 RGB. Other
-    formats raise."""
+    """Decode one PNG, JPEG, BMP or `.npy` frame to HWC uint8 RGB. Other
+    formats raise; TIFF and WebP name the codec library they need."""
     path = Path(path)
     if path.suffix.lower() == ".npy":
         frame = np.load(path)
@@ -69,8 +70,18 @@ def load_image(path: Union[str, Path]) -> np.ndarray:
         return decode_png(data)
     if data[:2] == JPEG_MAGIC:
         return decode_jpeg(path)
-    raise ValueError(f"{path}: only PNG, JPEG and .npy frames are decoded "
-                     f"(there is no PIL or cv2 on this path)")
+    if data[:2] == BMP_MAGIC:
+        return decode_bmp(data)
+    for magic, kind, lib in ((b"II*\x00", "TIFF", "libtiff"),
+                             (b"MM\x00*", "TIFF", "libtiff"),
+                             (b"RIFF", "WebP", "libwebp")):
+        if data[:len(magic)] == magic and (kind != "WebP" or
+                                           data[8:12] == b"WEBP"):
+            raise ValueError(f"{path}: {kind} frames need the {lib} codec, "
+                             f"which the port does not have (no PIL or cv2 "
+                             f"on this path); convert them to PNG")
+    raise ValueError(f"{path}: only PNG, JPEG, BMP and .npy frames are "
+                     f"decoded (there is no PIL or cv2 on this path)")
 
 
 class ImageFolderSource:

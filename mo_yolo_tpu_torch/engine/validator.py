@@ -9,7 +9,10 @@ boundary. Each frame is letterboxed on the host, its uint8 image goes to
 the device, one `stream_step` runs, and its packed [1, M, 8] result comes
 back to the host once, after the step. The metrics run on the host.
 `MultiStreamValidator` runs several sequences at once as the batch.
-`DetectionValidator` scores a detection model's frames by mAP alone.
+`DetectionValidator` scores a detection model's frames by mAP alone;
+`SegmentationValidator` and `PoseValidator` a task model's images by box
+mAP and mask or keypoint mAP, and `classify_accuracy` a classifier's
+top-1 and top-5 accuracy.
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ from typing import Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from mo_yolo_tpu_torch.data.dataset import TrackDataset, video_key
 from mo_yolo_tpu_torch.metrics import hota as hota_m
@@ -331,3 +335,134 @@ class DetectionValidator:
                                  round(x2 - x1, 3), round(y2 - y1, 3)],
                         "score": round(float(sc), 5)})
         return out
+
+
+def _to_host(*tensors: torch.Tensor) -> List[np.ndarray]:
+    """The tensors as numpy arrays through one copy to the host: each
+    flattened into one f32 buffer (every value here is exact in f32),
+    split and cast back to its dtype."""
+    flat = torch.cat([t.reshape(-1).float() for t in tensors]).cpu().numpy()
+    out, at = [], 0
+    for t in tensors:
+        n = t.numel()
+        out.append(flat[at:at + n].reshape(t.shape).astype(
+            torch.empty((), dtype=t.dtype).numpy().dtype, copy=False))
+        at += n
+    return out
+
+
+def _task_image(path: str, imgsz: int, device) -> torch.Tensor:
+    from mo_yolo_tpu_torch.train.task_trainers import load_resized
+    return torch.from_numpy(load_resized(path, imgsz)[None]).to(device)
+
+
+class SegmentationValidator:
+    """`validator(img_files)` -> box and mask mAP50, mAP50-95, precision,
+    recall (keys `(B)` and `(M)`) and fps of a `SegmentationModel` (the
+    port's copy of `SegmentationValidator` in
+    `mo_yolo_tpu/engine/validator.py`): each image stretched to `imgsz`,
+    one `predict_step` (NMS by the greedy kernel on the card), the kept
+    masks composed on the device at the prototypes' resolution (or
+    resized, nearest, to `mask_size`) and copied back with the boxes in
+    one transfer; the polygon labels rasterized at `mask_size`."""
+
+    def __init__(self, model, imgsz: int = 256, mask_size: int = 0,
+                 callbacks: Optional[CallbackBus] = None):
+        self.callbacks = callbacks or CallbackBus()
+        self.model = model
+        self.device = next(model.parameters()).device
+        self.imgsz = imgsz
+        self.mask_size = mask_size or imgsz // 4
+
+    def __call__(self, img_files: List[str]) -> Dict[str, float]:
+        from mo_yolo_tpu_torch.data.dataset import img2label_path
+        from mo_yolo_tpu_torch.data.seg_pose_labels import (
+            parse_seg_label, polygons_to_boxes, rasterize_polygons)
+        from mo_yolo_tpu_torch.metrics.segment_pose import SegmentMetrics
+        from mo_yolo_tpu_torch.models.heads_extra import masks_from
+        self.callbacks.fire("on_val_start", validator=self)
+        m = SegmentMetrics(self.model.spec.nc)
+        ms = self.mask_size
+        t0 = time.perf_counter()
+        for f in img_files:
+            boxes, scores, cls, coef, protos = self.model.predict_step(
+                _task_image(f, self.imgsz, self.device))
+            masks = masks_from(coef, protos)[0] > 0.5
+            if masks.shape[-1] != ms:
+                masks = F.interpolate(masks[None].float(), size=(ms, ms),
+                                      mode="nearest-exact")[0] > 0.5
+            boxes, scores, cls, masks = _to_host(boxes[0], scores[0], cls[0],
+                                                 masks)
+            keep = scores > 0
+            gcls, polys = parse_seg_label(img2label_path(f))
+            m.update(boxes[keep] / self.imgsz, masks[keep], scores[keep],
+                     cls[keep], polygons_to_boxes(polys),
+                     rasterize_polygons(polys, ms), gcls)
+        out = m.compute()
+        out["fps"] = len(img_files) / max(time.perf_counter() - t0, 1e-9)
+        self.callbacks.fire("on_val_end", validator=self, metrics=out)
+        return out
+
+
+class PoseValidator:
+    """`validator(img_files)` -> box and keypoint (OKS) mAP50, mAP50-95,
+    precision, recall (keys `(B)` and `(P)`) and fps of a `PoseModel`: each
+    image stretched to `imgsz`, one `predict_step`, one transfer back."""
+
+    def __init__(self, model, imgsz: int = 256,
+                 callbacks: Optional[CallbackBus] = None):
+        self.callbacks = callbacks or CallbackBus()
+        self.model = model
+        self.device = next(model.parameters()).device
+        self.imgsz = imgsz
+
+    def __call__(self, img_files: List[str]) -> Dict[str, float]:
+        from mo_yolo_tpu_torch.data.dataset import img2label_path
+        from mo_yolo_tpu_torch.data.seg_pose_labels import parse_pose_label
+        from mo_yolo_tpu_torch.metrics.segment_pose import PoseMetrics
+        self.callbacks.fire("on_val_start", validator=self)
+        K = self.model.kpt_shape[0]
+        m = PoseMetrics(self.model.spec.nc)
+        s = self.imgsz
+        t0 = time.perf_counter()
+        for f in img_files:
+            out = self.model.predict_step(_task_image(f, s, self.device))
+            boxes, scores, cls, kpts = _to_host(*(t[0] for t in out))
+            keep = scores > 0
+            gcls, gboxes, gkpts = parse_pose_label(img2label_path(f), K)
+            gk = gkpts.copy()
+            gk[..., :2] *= s
+            m.update(boxes[keep], kpts[keep], scores[keep], cls[keep],
+                     _xywhn2xyxy(gboxes, s), gk, gcls)
+        out = m.compute()
+        out["fps"] = len(img_files) / max(time.perf_counter() - t0, 1e-9)
+        self.callbacks.fire("on_val_end", validator=self, metrics=out)
+        return out
+
+
+def classify_accuracy(model, root, imgsz: int,
+                      callbacks: Optional[CallbackBus] = None
+                      ) -> Dict[str, float]:
+    """Top-1 and top-5 accuracy (in %) and the image count of a classifier
+    over a class-subdir tree: its held-out split (`test/`, else `val/`)
+    where it has a `train/` subtree, else the whole tree."""
+    from mo_yolo_tpu_torch.train.task_trainers import class_files, class_tree
+    callbacks = callbacks or CallbackBus()
+    callbacks.fire("on_val_start", validator=model)
+    train_root, held = class_tree(root)
+    root = held or train_root
+    classes = sorted(p.name for p in root.iterdir() if p.is_dir())
+    files, labels = class_files(root, classes)
+    dev = next(model.parameters()).device
+    top1 = top5 = 0
+    with torch.no_grad():
+        for f, ci in zip(files, labels):
+            logits = model(_task_image(f, imgsz, dev))[0].float().cpu().numpy()
+            order = np.argsort(-logits)
+            top1 += int(order[0] == ci)
+            top5 += int(ci in order[:5])
+    n = len(files)
+    out = {"accuracy_top1": 100.0 * top1 / max(n, 1),
+           "accuracy_top5": 100.0 * top5 / max(n, 1), "n": n}
+    callbacks.fire("on_val_end", validator=model, metrics=out)
+    return out

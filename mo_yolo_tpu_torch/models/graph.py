@@ -2,11 +2,13 @@
 `mo_yolo_tpu/models/graph.py`).
 
 `parse_model_yaml` reads an ultralytics-style config dict (rows of
-`[from, repeats, module, args]`) for the row types the track and
-detection configs use: Conv (with its padding and activation arguments),
-C2f, SPPF, Upsample, Concat, the RT-DETR rows DWConv, RepC3, HGStem,
-HGBlock and AIFI, and a head row (any of `HEAD_MODULES`, as the
-JAX parser takes; the task model builds its own head on the taps).
+`[from, repeats, module, args]`) for the row types the track, detection
+and task configs use: Conv (with its padding and activation arguments),
+C2f, C3, SPPF, SPP, Upsample, Concat, ConvTranspose, Focus, GhostConv,
+the RT-DETR rows DWConv, RepC3, HGStem, HGBlock and AIFI, and a head row
+(any of `HEAD_MODULES`, as the JAX parser takes; the task model builds
+its own head on the taps from the row's arguments, `head_args`, and the
+taps' strides, `out_strides`).
 `BackboneNeck` is an `nn.ModuleList` whose entry i is row i, so its
 `state_dict` keys are upstream's `model.{i}.…` once the task model stores
 it as `model`; the head module sits at the head row's index.
@@ -22,9 +24,10 @@ import torch
 from torch import nn
 
 from mo_yolo_tpu_torch.cfg.models import load_model_cfg
-from mo_yolo_tpu_torch.models.layers import (AIFI, SPPF, C2f, Concat,
-                                             ConvBnAct, DWConv, HGBlock,
-                                             HGStem, RepC3)
+from mo_yolo_tpu_torch.models.layers import (AIFI, C3, SPP, SPPF, C2f,
+                                             Concat, ConvBnAct, ConvTranspose,
+                                             DWConv, Focus, GhostConv,
+                                             HGBlock, HGStem, RepC3)
 
 HEAD_MODULES = {"MOTRTrack", "RTDETRDecoder", "MYDecoder", "Detect", "Segment",
                 "Pose", "Classify"}
@@ -52,6 +55,8 @@ class GraphSpec:
     out_channels: Tuple[int, ...]
     nc: int
     head_module: str
+    head_args: Tuple[Any, ...] = ()     # the head row's arguments
+    out_strides: Tuple[int, ...] = ()   # each tap's stride in pixels
 
     @property
     def head_index(self) -> int:
@@ -78,6 +83,7 @@ def parse_model_yaml(cfg: Union[str, Dict[str, Any]],
 
     rows = list(cfg["backbone"]) + list(cfg["head"])
     ch: List[int] = [3]            # ch[i + 1] = output channels of node i
+    stride: List[int] = []         # stride[i] = node i's stride in pixels
     nodes: List[NodeSpec] = []
     head_row = None
     for i, (frm, n, mod, args) in enumerate(rows):
@@ -89,9 +95,10 @@ def parse_model_yaml(cfg: Union[str, Dict[str, Any]],
                 for a in (args or [])]
         n_rep = max(round(n * depth), 1) if n > 1 else n
         if mod in HEAD_MODULES:
-            head_row = (frm_t, mod)
+            head_row = (frm_t, mod, tuple(args))
             break
         c1 = ch[frm_t[0] + 1]
+        st = stride[frm_t[0]] if frm_t[0] >= 0 else 1
         if mod == "Conv":
             c2 = channels(args[0])
             k = args[1] if len(args) > 1 else 1
@@ -102,16 +109,39 @@ def parse_model_yaml(cfg: Union[str, Dict[str, Any]],
                 raise ValueError("repeated Conv rows are not ported")
             nodes.append(NodeSpec(i, frm_t, "Conv", 1, (k, s, act, p), c1,
                                   c2))
+            st *= s
         elif mod == "DWConv":
             c2 = channels(args[0])
             k = args[1] if len(args) > 1 else 1
             s = args[2] if len(args) > 2 else 1
             act = args[4] if len(args) > 4 else True
             nodes.append(NodeSpec(i, frm_t, "DWConv", 1, (k, s, act), c1, c2))
-        elif mod == "C2f":
+            st *= s
+        elif mod in ("C2f", "C3"):
             c2 = channels(args[0])
-            shortcut = bool(args[1]) if len(args) > 1 else False
-            nodes.append(NodeSpec(i, frm_t, "C2f", n_rep, (shortcut,), c1, c2))
+            shortcut = bool(args[1]) if len(args) > 1 else mod == "C3"
+            nodes.append(NodeSpec(i, frm_t, mod, n_rep, (shortcut,), c1, c2))
+        elif mod == "ConvTranspose":
+            c2 = channels(args[0])
+            k = args[1] if len(args) > 1 else 2
+            s = args[2] if len(args) > 2 else 2
+            nodes.append(NodeSpec(i, frm_t, mod, 1, (k, s), c1, c2))
+            st = max(st // s, 1)
+        elif mod == "Focus":
+            c2 = channels(args[0])
+            k = args[1] if len(args) > 1 else 1
+            nodes.append(NodeSpec(i, frm_t, mod, 1, (k,), c1, c2))
+            st *= 2
+        elif mod == "GhostConv":
+            c2 = channels(args[0])
+            k = args[1] if len(args) > 1 else 1
+            s = args[2] if len(args) > 2 else 1
+            nodes.append(NodeSpec(i, frm_t, mod, 1, (k, s), c1, c2))
+            st *= s
+        elif mod == "SPP":
+            c2 = channels(args[0])
+            ks = tuple(args[1]) if len(args) > 1 else (5, 9, 13)
+            nodes.append(NodeSpec(i, frm_t, mod, 1, (ks,), c1, c2))
         elif mod == "RepC3":
             c2 = channels(args[0])
             nodes.append(NodeSpec(i, frm_t, "RepC3", n_rep, (), c1, c2))
@@ -119,6 +149,7 @@ def parse_model_yaml(cfg: Union[str, Dict[str, Any]],
             c2 = channels(args[1])
             nodes.append(NodeSpec(i, frm_t, "HGStem", 1, (channels(args[0]),),
                                   c1, c2))
+            st *= 4
         elif mod == "HGBlock":
             c2 = channels(args[1])
             k = args[2] if len(args) > 2 else 3
@@ -139,18 +170,24 @@ def parse_model_yaml(cfg: Union[str, Dict[str, Any]],
         elif mod in ("nn.Upsample", "Upsample"):
             c2 = c1
             nodes.append(NodeSpec(i, frm_t, "Upsample", 1, (), c1, c2))
+            st //= 2
         elif mod == "Concat":
             c2 = sum(ch[f + 1] for f in frm_t)
             nodes.append(NodeSpec(i, frm_t, "Concat", 1, (), c1, c2))
         else:
             raise ValueError(f"unsupported module in the port's graph: {mod}")
         ch.append(c2)
+        stride.append(st)
     if head_row is None:
         raise ValueError("model config has no head row (one of "
                          f"{sorted(HEAD_MODULES)})")
-    taps, head_module = head_row
+    taps, head_module, head_args = head_row
+    if head_module == "Segment" and len(head_args) >= 3:
+        # the proto channels are a channel count like any other
+        head_args = (*head_args[:2], channels(head_args[2]))
     return GraphSpec(tuple(nodes), taps, tuple(ch[f + 1] for f in taps), nc,
-                     head_module)
+                     head_module, head_args,
+                     tuple(stride[f] for f in taps))
 
 
 def _build_node(node: NodeSpec) -> nn.Module:
@@ -162,6 +199,16 @@ def _build_node(node: NodeSpec) -> nn.Module:
         return DWConv(c1, c2, *a)
     if node.module == "C2f":
         return C2f(c1, c2, node.repeats, a[0])
+    if node.module == "C3":
+        return C3(c1, c2, node.repeats, a[0])
+    if node.module == "ConvTranspose":
+        return ConvTranspose(c1, c2, *a)
+    if node.module == "Focus":
+        return Focus(c1, c2, *a)
+    if node.module == "GhostConv":
+        return GhostConv(c1, c2, *a)
+    if node.module == "SPP":
+        return SPP(c1, c2, a[0])
     if node.module == "RepC3":
         return RepC3(c1, c2, node.repeats)
     if node.module == "HGStem":

@@ -119,13 +119,14 @@ class ConvBnAct(nn.Module):
 
 
 class Bottleneck(nn.Module):
-    """Two 3×3 convs (C2f's, expansion 1.0) with a residual when the
-    channel counts match."""
+    """Two convs (3×3 and 3×3 in C2f, 1×1 and 3×3 in C3; expansion 1.0)
+    with a residual when the channel counts match."""
 
-    def __init__(self, c1: int, c2: int, shortcut: bool = True):
+    def __init__(self, c1: int, c2: int, shortcut: bool = True,
+                 k: Sequence[int] = (3, 3)):
         super().__init__()
-        self.cv1 = ConvBnAct(c1, c2, 3)
-        self.cv2 = ConvBnAct(c2, c2, 3)
+        self.cv1 = ConvBnAct(c1, c2, k[0])
+        self.cv2 = ConvBnAct(c2, c2, k[1])
         self.add = shortcut and c1 == c2
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -174,6 +175,127 @@ class Concat(nn.Module):
 
     def forward(self, xs: Sequence[torch.Tensor]) -> torch.Tensor:
         return torch.cat(list(xs), 1)
+
+
+class SPP(nn.Module):
+    """Spatial pyramid pooling, the parallel form (upstream `SPP`): a 1×1
+    conv to half the channels, max pools of sizes `k` beside it, a 1×1
+    conv over the concatenation."""
+
+    def __init__(self, c1: int, c2: int, k: Sequence[int] = (5, 9, 13)):
+        super().__init__()
+        c_ = c1 // 2
+        self.cv1 = ConvBnAct(c1, c_, 1)
+        self.cv2 = ConvBnAct(c_ * (len(k) + 1), c2, 1)
+        self.k = tuple(k)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = self.cv1(x)
+        return self.cv2(torch.cat([y] + [F.max_pool2d(y, k, 1, k // 2)
+                                         for k in self.k], 1))
+
+
+def flax_transpose_padding(k: int, s: int, same: bool):
+    """The (before, after) padding of the zero-dilated input that flax's
+    `ConvTranspose` (lax.conv_transpose) uses for "SAME" or "VALID"."""
+    if same:
+        pad_len = k + s - 2
+        before = k - 1 if s > k - 1 else math.ceil(pad_len / 2)
+    else:
+        pad_len = k + s - 2 + max(k - s, 0)
+        before = k - 1
+    return before, pad_len - before
+
+
+def conv_transpose_flax(x: torch.Tensor, weight: torch.Tensor,
+                        bias: Optional[torch.Tensor], s: int,
+                        same: bool) -> torch.Tensor:
+    """flax's `ConvTranspose` with upstream's weight layout: `weight`
+    [in, out, k, k] is the flax kernel flipped in space (as torch's
+    `ConvTranspose2d` holds it), so torch's full transposed convolution
+    equals flax's on the rows and columns both keep; flax's padding then
+    crops (or extends with zeros) each side."""
+    k = weight.shape[-1]
+    before, after = flax_transpose_padding(k, s, same)
+    y = F.conv_transpose2d(x, weight, None, s)
+    lo = k - 1 - before
+    n = [(d - 1) * s + 1 + before + after - k + 1 for d in x.shape[-2:]]
+    y = y[..., lo:lo + n[0], lo:lo + n[1]]
+    y = F.pad(y, (0, n[1] - y.shape[-1], 0, n[0] - y.shape[-2]))
+    return y if bias is None else y + bias[None, :, None, None]
+
+
+class ConvTranspose(nn.Module):
+    """Transposed conv + BatchNorm + activation (upstream `ConvTranspose`):
+    padding "VALID" when the kernel equals the stride, else flax's
+    "SAME", as the JAX package builds it."""
+
+    def __init__(self, c1: int, c2: int, k: int = 2, s: int = 2,
+                 bn: bool = True, act=True):
+        super().__init__()
+        self.conv_transpose = nn.ConvTranspose2d(c1, c2, k, s, bias=not bn)
+        self.bn = BatchNorm2d(c2, eps=1e-3, momentum=0.03) if bn else None
+        self.s, self.act = s, act
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        ct = self.conv_transpose
+        y = conv_transpose_flax(x, ct.weight, ct.bias, self.s,
+                                same=ct.kernel_size[0] != self.s)
+        if self.bn is not None:
+            y = self.bn(y)
+        if self.act == "relu":
+            return F.relu(y)
+        return F.silu(y) if self.act else y
+
+
+class Focus(nn.Module):
+    """Space-to-depth stem (upstream `Focus`): each 2×2 block's four
+    pixels into channels, then a conv."""
+
+    def __init__(self, c1: int, c2: int, k: int = 1):
+        super().__init__()
+        self.conv = ConvBnAct(c1 * 4, c2, k)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.conv(torch.cat([x[..., ::2, ::2], x[..., 1::2, ::2],
+                                    x[..., ::2, 1::2], x[..., 1::2, 1::2]],
+                                   1))
+
+
+class GhostConv(nn.Module):
+    """Ghost convolution (upstream `GhostConv`): half the channels from a
+    conv, the other half from a depthwise 5×5 over them."""
+
+    def __init__(self, c1: int, c2: int, k: int = 1, s: int = 1):
+        super().__init__()
+        c_ = c2 // 2
+        self.cv1 = ConvBnAct(c1, c_, k, s)
+        self.cv2 = ConvBnAct(c_, c_, 5, 1, g=c_)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = self.cv1(x)
+        return torch.cat([y, self.cv2(y)], 1)
+
+
+class C3(nn.Module):
+    """CSP bottleneck with three convs (upstream `C3`): `n` 1×1-3×3
+    bottlenecks on one half, a 1×1 conv on the other."""
+
+    def __init__(self, c1: int, c2: int, n: int = 1, shortcut: bool = True,
+                 e: float = 0.5):
+        super().__init__()
+        c_ = int(c2 * e)
+        self.cv1 = ConvBnAct(c1, c_, 1)
+        self.cv2 = ConvBnAct(c1, c_, 1)
+        self.cv3 = ConvBnAct(2 * c_, c2, 1)
+        self.m = nn.ModuleList(Bottleneck(c_, c_, shortcut, (1, 3))
+                               for _ in range(n))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        a = self.cv1(x)
+        for block in self.m:
+            a = block(a)
+        return self.cv3(torch.cat([a, self.cv2(x)], 1))
 
 
 class MLP(nn.Module):

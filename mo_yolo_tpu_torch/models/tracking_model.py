@@ -203,8 +203,8 @@ class TrackingModel(nn.Module):
 
 @torch.no_grad()
 def init_parameters(model: nn.Module, generator: torch.Generator) -> None:
-    """Seeded random init of a tracking or detection model, following the
-    JAX package's initialisers: LeCun-normal weights, zero biases,
+    """Seeded random init of a tracking, detection or task model, following
+    the JAX package's initialisers: LeCun-normal weights, zero biases,
     identity BatchNorm/LayerNorm, the upstream sampling-offset ring, zero
     attention-weight projections and the class prior on every score
     head."""
@@ -212,8 +212,10 @@ def init_parameters(model: nn.Module, generator: torch.Generator) -> None:
         t.copy_(torch.randn(t.shape, generator=generator) * std)
 
     for m in model.modules():
-        if isinstance(m, (nn.Conv2d, nn.Linear)):
-            fan_in = m.weight[0].numel()
+        if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d, nn.Linear)):
+            # a transposed conv's weight is [in, out, k, k]
+            fan_in = m.weight[:, 0].numel() if isinstance(
+                m, nn.ConvTranspose2d) else m.weight[0].numel()
             normal_(m.weight, fan_in ** -0.5)
             if m.bias is not None:
                 m.bias.zero_()
@@ -228,7 +230,9 @@ def init_parameters(model: nn.Module, generator: torch.Generator) -> None:
         elif isinstance(m, MultiHeadSelfAttention):
             normal_(m.in_proj_weight, m.in_proj_weight.shape[1] ** -0.5)
             m.in_proj_bias.zero_()
-    dec = model.decoder
+    dec = getattr(model, "decoder", None)
+    if dec is None:              # a YOLOv8 task model: no decoder
+        return
     for layer in dec.decoder.layers:
         ca = layer.cross_attn
         ca.sampling_offsets.weight.zero_()

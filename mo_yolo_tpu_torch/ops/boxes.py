@@ -1,7 +1,9 @@
-"""Box operations the tracker, the losses and the matcher need (counterpart
-of `mo_yolo_tpu/ops/boxes.py`)."""
+"""Box operations the tracker, the losses, the matcher and the YOLOv8 task
+losses need (counterpart of `mo_yolo_tpu/ops/boxes.py`)."""
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -67,3 +69,36 @@ def elementwise_iou(box1: torch.Tensor, box2: torch.Tensor, xywh: bool = True,
     cy2 = torch.maximum(box1[..., 3], box2[..., 3])
     c_area = (cx2 - cx1) * (cy2 - cy1) + eps
     return iou - (c_area - union) / c_area
+
+
+def elementwise_ciou(box1: torch.Tensor, box2: torch.Tensor, xywh: bool = True,
+                     eps: float = EPS) -> torch.Tensor:
+    """Complete IoU of aligned box pairs [..., 4] -> [...]: IoU minus the
+    squared centre distance over the enclosing box's squared diagonal,
+    minus the aspect-ratio term v·alpha, with alpha held constant under
+    differentiation (upstream `bbox_iou(..., CIoU=True)`)."""
+    if xywh:
+        box1, box2 = xywh2xyxy(box1), xywh2xyxy(box2)
+    iou = elementwise_iou(box1, box2, xywh=False, eps=eps)
+    cw = torch.maximum(box1[..., 2], box2[..., 2]) - \
+        torch.minimum(box1[..., 0], box2[..., 0])
+    ch = torch.maximum(box1[..., 3], box2[..., 3]) - \
+        torch.minimum(box1[..., 1], box2[..., 1])
+    c2 = cw ** 2 + ch ** 2 + eps
+    rho2 = ((box1[..., 0] + box1[..., 2] - box2[..., 0] - box2[..., 2]) ** 2 +
+            (box1[..., 1] + box1[..., 3] - box2[..., 1] - box2[..., 3]) ** 2
+            ) / 4
+    w1, h1 = box1[..., 2] - box1[..., 0], box1[..., 3] - box1[..., 1]
+    w2, h2 = box2[..., 2] - box2[..., 0], box2[..., 3] - box2[..., 1]
+    v = (4 / math.pi ** 2) * (torch.atan(w2 / (h2 + eps)) -
+                              torch.atan(w1 / (h1 + eps))) ** 2
+    alpha = (v / (v - iou + (1 + eps))).detach()
+    return iou - (rho2 / c2 + v * alpha)
+
+
+def pairwise_ciou(box1: torch.Tensor, box2: torch.Tensor,
+                  eps: float = EPS) -> torch.Tensor:
+    """Pairwise CIoU of xyxy boxes [..., M, 4] x [..., N, 4] -> [..., M, N]
+    (the task-aligned assigner's alignment metric)."""
+    return elementwise_ciou(box1[..., :, None, :], box2[..., None, :, :],
+                            xywh=False, eps=eps)

@@ -1,7 +1,8 @@
 """Carry the JAX package's weights across to the port.
 
-`state_dict_from_jax` takes the variables of a JAX `TrackingModel` or
-`DetectionModel` as a nested dict of numpy arrays (`{"params": …,
+`state_dict_from_jax` takes the variables of a JAX `TrackingModel`,
+`DetectionModel`, `SegmentationModel`, `PoseModel` or `ClassifyModel` as a
+nested dict of numpy arrays (`{"params": …,
 "batch_stats": …}`) and returns the port's `state_dict`, keyed as upstream
 ultralytics (`model.{i}.…`, the head at `model.{head_idx}`: a tracking
 head holds `decoder` and `track_embed`, a detection head is the decoder
@@ -15,12 +16,22 @@ restricted to the modules the port has:
   * BatchNorm `scale`/`bias`/`mean`/`var` -> `weight`/`bias`/
     `running_mean`/`running_var`, plus `num_batches_tracked`;
   * a DWConv row's inner `conv` level is dropped (upstream's DWConv is a
-    Conv); AIFI's attention, linear layers and norms as the decoder's.
+    Conv), a Focus row's is kept (upstream's Focus holds a Conv); AIFI's
+    attention, linear layers and norms as the decoder's;
+  * transposed-conv kernels HWIO -> [in, out, kH, kW], flipped in space:
+    flax's `ConvTranspose` correlates with its kernel where torch's
+    `ConvTranspose2d` convolves;
+  * the YOLOv8 task heads (`params/head/...`): `[detect/]cv{2,3,4}_{i}_{j}`
+    -> `model.{h}.cv{2,3,4}.{i}.{j}` (j = 2 the plain output conv),
+    `proto/{cv1,upsample,cv2,cv3}` -> `model.{h}.proto.…`, and Classify's
+    `conv`, `linear` -> `model.{h}.conv`, `model.{h}.linear` (upstream's
+    `model.{h}.conv` names Classify's conv, not a backbone row's, since
+    the head is the row at `head_idx`).
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Iterator, List, Optional, Tuple
+from typing import Any, Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -52,8 +63,45 @@ def _conv(a: np.ndarray) -> np.ndarray:
     return np.transpose(a, (3, 2, 0, 1))
 
 
+def _conv_t(a: np.ndarray) -> np.ndarray:
+    return np.ascontiguousarray(np.transpose(a[::-1, ::-1], (2, 3, 0, 1)))
+
+
+def _conv_bn(base: str, rest: List[str], a: np.ndarray
+             ) -> Tuple[str, np.ndarray]:
+    """A ConvBnAct's leaf (`conv/kernel`, `bn/<leaf>`) under `base`."""
+    if rest[0] == "conv":
+        return f"{base}.conv.weight", _conv(a)
+    return f"{base}.bn.{_BN[rest[-1]]}", a
+
+
+def _task_head(H: str, rest: List[str], a: np.ndarray
+               ) -> Tuple[str, np.ndarray]:
+    """A YOLOv8 task head's leaf -> (key under `H`, value)."""
+    if rest[0] == "detect":       # Segment and Pose nest the Detect head
+        rest = rest[1:]
+    name, leaf = rest[0], rest[-1]
+    if name[:3] in ("cv2", "cv3", "cv4"):
+        cv, i, j = name.split("_")
+        base = f"{H}.{cv}.{i}.{j}"
+        if j == "2":              # the plain output conv
+            return f"{base}.{_wb(leaf)}", _conv(a) if leaf == "kernel" else a
+        return _conv_bn(base, rest[1:], a)
+    if name == "proto":
+        if rest[1] == "upsample":
+            return (f"{H}.proto.upsample.{_wb(leaf)}",
+                    _conv_t(a) if leaf == "kernel" else a)
+        return _conv_bn(f"{H}.proto.{rest[1]}", rest[2:], a)
+    if name == "conv":
+        return _conv_bn(f"{H}.conv", rest[1:], a)
+    if name == "linear":
+        return f"{H}.linear.{_wb(leaf)}", _dense(leaf, a)
+    raise KeyError("/".join(rest))
+
+
 def _map(parts: Tuple[str, ...], a: np.ndarray, H: str,
-         qkv: Dict[str, Dict[str, np.ndarray]], detect: bool = False
+         qkv: Dict[str, Dict[str, np.ndarray]], detect: bool = False,
+         focus_rows: Sequence[int] = ()
          ) -> Optional[Tuple[str, np.ndarray]]:
     """One JAX leaf -> (torch key, value); q/k/v leaves are collected in
     `qkv` and fused afterwards (returns None for them)."""
@@ -73,7 +121,11 @@ def _map(parts: Tuple[str, ...], a: np.ndarray, H: str,
             return attn(f"{node}.ma", rest[2])
         if rest[1] in ("fc1", "fc2", "norm1", "norm2"):     # AIFI
             return f"{node}.{rest[1]}.{_wb(leaf)}", _dense(leaf, a)
-        if rest[1] == "conv" and len(rest) == 4:    # DWConv's inner Conv
+        if rest[1] == "conv_transpose":             # ConvTranspose rows
+            return (f"{node}.conv_transpose.{_wb(leaf)}",
+                    _conv_t(a) if leaf == "kernel" else a)
+        if rest[1] == "conv" and len(rest) == 4 and \
+                int(rest[0][1:]) not in focus_rows:  # DWConv's inner Conv
             rest = rest[:1] + rest[2:]
         mids: List[str] = [node]
         for p in rest[1:-1]:
@@ -81,6 +133,8 @@ def _map(parts: Tuple[str, ...], a: np.ndarray, H: str,
         if leaf == "kernel":
             return ".".join(mids + ["weight"]), _conv(a)
         return ".".join(mids + [_BN[leaf]]), a
+    if top == "head":
+        return _task_head(H, rest, a)
     if top == "qim":
         base = f"{H}.track_embed"
         if rest[0] == "self_attn":
@@ -125,15 +179,18 @@ def _map(parts: Tuple[str, ...], a: np.ndarray, H: str,
 
 
 def state_dict_from_jax(variables: Dict[str, Any], head_idx: int = 22,
-                        detect: bool = False) -> Dict[str, torch.Tensor]:
+                        detect: bool = False,
+                        focus_rows: Sequence[int] = ()
+                        ) -> Dict[str, torch.Tensor]:
     """The port's `state_dict` (f32 tensors) for JAX variables given as
     nested dicts of numpy arrays. `detect=True` reads a `DetectionModel`'s
-    variables: its decoder goes straight to `model.{head_idx}`."""
+    variables: its decoder goes straight to `model.{head_idx}`.
+    `focus_rows` names the graph's Focus rows (their `conv` level stays)."""
     H = f"model.{head_idx}"
     sd: Dict[str, torch.Tensor] = {}
     qkv: Dict[str, Dict[str, np.ndarray]] = {}
     for parts, a in _flatten(variables):
-        hit = _map(parts, a, H, qkv, detect)
+        hit = _map(parts, a, H, qkv, detect, focus_rows)
         if hit is not None:
             key, val = hit
             sd[key] = torch.from_numpy(np.array(val, np.float32))  # a copy

@@ -176,7 +176,8 @@ def test_jpeg_without_libjpeg_raises_naming_it(tmp_path, monkeypatch):
 def test_decoder_builds_once_with_the_host_compiler(tmp_path):
     """The C file is built into build/host_libs under a name keyed by its
     source and flags, and loaded once a process; `.npy` frames load
-    through numpy, and other formats raise."""
+    through numpy, a BMP frame decodes, and a TIFF one raises, naming the
+    codec it needs."""
     from mo_yolo_tpu_torch.data import decode
     from mo_yolo_tpu_torch.data.loaders import load_image
     from mo_yolo_tpu_torch.utils import cuda_build
@@ -190,8 +191,10 @@ def test_decoder_builds_once_with_the_host_compiler(tmp_path):
     np.save(tmp_path / "frame.npy", a)
     np.testing.assert_array_equal(load_image(tmp_path / "frame.npy"), a)
     Image.fromarray(a).save(tmp_path / "frame.bmp")
-    with pytest.raises(ValueError, match="PNG, JPEG"):
-        load_image(tmp_path / "frame.bmp")
+    np.testing.assert_array_equal(load_image(tmp_path / "frame.bmp"), a)
+    Image.fromarray(a).save(tmp_path / "frame.tif")
+    with pytest.raises(ValueError, match="TIFF frames need the libtiff"):
+        load_image(tmp_path / "frame.tif")
 
 
 # ------------------------------------------------------------- letterbox

@@ -437,9 +437,12 @@ def test_yolo_routes_tasks():
     assert type(YOLO("tiny_detr", task="rtdetr", **kw)) is RTDETR
     assert type(YOLO("tiny_track", device="cpu", dtype="float32")) is \
         MOTRTrack
+    from mo_yolo_tpu_torch.api import _TaskModel
     for task in ("segment", "pose", "classify"):
-        with pytest.raises(NotImplementedError, match="item 7c"):
-            YOLO("tiny_track", task=task)
+        m = YOLO("tiny_track", task=task, device="cpu", imgsz=64)
+        assert type(m) is _TaskModel and m.task == task
+    with pytest.raises(NotImplementedError, match="not a task"):
+        YOLO("tiny_track", task="sam", device="cpu")
 
 
 def test_cli_detect_predict_tune_and_the_device_message(saved, fixture160,

@@ -985,6 +985,60 @@ def test_greedy_kernel_other_sizes_on_card(card, M):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("imgsz", [256, 640])
+def test_greedy_kernel_on_nms_conflicts_on_card(card, imgsz):
+    """The greedy kernel on `nms_fixed`'s conflict matrices of an untrained
+    YOLOv8 head (`chip_smoke.nms_fixed_conflicts`, taken from `nms_fixed`:
+    every anchor, 1,344 at 256 and 8,400 at 640, scores sorted, one class,
+    the boxes of neighbouring anchors overlapping: deep conflict chains),
+    on the global-memory path, exactly against its plain version, in one
+    launch for two images."""
+    from chip_smoke import nms_fixed_conflicts
+    from mo_yolo_tpu_torch.ops.suppress import (
+        greedy_keep_from_conflicts, greedy_keep_from_conflicts_torch)
+    conflict, valid = nms_fixed_conflicts(imgsz, b=2, device=card)
+    assert conflict.shape[-1] == {256: 1344, 640: 8400}[imgsz]
+    assert float(conflict.float().sum(-1).mean()) > 1.0     # dense
+    before = greedy_keep_from_conflicts.launches
+    got = greedy_keep_from_conflicts(conflict, valid)
+    torch.cuda.synchronize()
+    assert greedy_keep_from_conflicts.launches == before + 1
+    want = greedy_keep_from_conflicts_torch(conflict, valid)
+    assert torch.equal(got, want)
+    assert 0 < int(got.sum()) < int(valid.sum())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("agnostic", [False, True])
+def test_nms_fixed_on_card_equals_plain_suppression(card, agnostic,
+                                                    monkeypatch):
+    """`nms_fixed` at 640 (8,400 anchors, two images, three classes) with
+    the kernel equals it with the plain greedy version on the same card
+    tensors, every output exactly, and makes no host sync."""
+    from chip_smoke import nms_inputs
+    from mo_yolo_tpu_torch.models import detect
+    from mo_yolo_tpu_torch.ops.suppress import greedy_keep_from_conflicts_torch
+    boxes, scores, _ = nms_inputs(640, b=2, device=card)
+    cls = torch.randint(0, 3, scores.shape, device=card,
+                        generator=torch.Generator(card).manual_seed(0))
+    extra = torch.rand(*scores.shape, 5, device=card)
+    args = (boxes, scores, cls, 0.7, 0.001, 100, (extra,), agnostic)
+    detect.nms_fixed(*args)            # build the kernel outside the check
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = detect.nms_fixed(*args)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    monkeypatch.setattr(detect, "greedy_keep_from_conflicts",
+                        greedy_keep_from_conflicts_torch)
+    want = detect.nms_fixed(*args)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert int(got[3].sum(1).min()) == 100
+
+
+@pytest.mark.gpu
 def test_stream_step_and_optimizer_step_make_no_host_sync_on_card(card):
     """A tiny_track stream (4 frames) and `ClipOptimizer.step` with the clip
     on (at half the gradients' norm) and off (at twice it) run with every
