@@ -8,6 +8,12 @@ Phases, each printed as one JSON line:
 1. card: name and power limit (`nvidia-smi`); exits non-zero without a card;
    host_tools: whether the host C compiler, jpeglib.h and libjpeg are
    found (the frame decoder needs the compiler; JPEG needs the other two);
+   resample: the host resize (`data/letterbox.resample`, PIL's
+   `Image.resize` arithmetic in C, which the letterbox, mosaic and the
+   mask overlays run) exactly against its plain numpy version on a 1080p
+   frame into 800x1422 and a 480x640 frame into 640x640 (bilinear, 3
+   channels) and a 160x160 mask into 1080x1920 (bicubic), with the ms of
+   each;
 2. build: compiles every kernel of the paths from
    `mo_yolo_tpu_torch/ops/csrc` with nvcc (one process per source, all
    started together) and reports each instantiation's registers and spills
@@ -2333,6 +2339,60 @@ def phase_host_tools():
     check(cc is not None, "no host C compiler: the frame decoder cannot be "
           "built")
     return rec
+
+
+# the host resize against its plain version: (name, source h x w,
+# channels, output h x w, PIL filter): a 1080p frame into the 1536x800
+# letterbox, a 480x640 frame stretched to 640x640, and a segment head's
+# 160x160 mask brought to a 1080p frame for its overlay
+RESAMPLE_CASES = (
+    ("frame_1080p_to_800x1422", (1080, 1920), 3, (800, 1422), "bilinear"),
+    ("frame_480x640_to_640x640", (480, 640), 3, (640, 640), "bilinear"),
+    ("mask_160x160_to_1080p", (160, 160), 1, (1080, 1920), "bicubic"))
+
+
+def phase_resample(cases=RESAMPLE_CASES, iters=5):
+    """The host resize (`data/letterbox.resample`: PIL's `Image.resize`
+    arithmetic in `data/csrc/resample.c`, built with the host compiler)
+    against its plain numpy version (`resize_plain`) on each of `cases`:
+    every value equal; the C's ms a call (host clock, best and median of
+    `iters`) beside the plain version's. Frames are random noise (every
+    value's rounding meets the check), the mask random ellipses."""
+    from mo_yolo_tpu_torch.data.letterbox import resample, resize_plain
+    recs = {}
+    for i, (name, src, c, hw, filt) in enumerate(cases):
+        rng = np.random.default_rng(i)
+        if c == 1:
+            yy, xx = np.mgrid[:src[0], :src[1]] / np.asarray(
+                src, float)[:, None, None]
+            img = np.zeros(src, bool)
+            for _ in range(4):
+                cy, cx, ry, rx = rng.uniform([0.2, 0.2, 0.05, 0.05],
+                                             [0.8, 0.8, 0.3, 0.3])
+                img |= np.hypot((yy - cy) / ry, (xx - cx) / rx) < 1
+            img = img.astype(np.uint8) * 255
+        else:
+            img = rng.integers(0, 256, (*src, c), np.uint8)
+        ms = []
+        for _ in range(iters):
+            t = time.perf_counter()
+            got = resample(img, hw, filt)
+            ms.append((time.perf_counter() - t) * 1e3)
+        t = time.perf_counter()
+        want = resize_plain(img, hw, filt)
+        plain_ms = (time.perf_counter() - t) * 1e3
+        recs[name] = {"src": list(src), "channels": c, "out": list(hw),
+                      "filter": filt, "values": int(want.size),
+                      "equal": int((got == want).sum()),
+                      "differ": int((got != want).sum()),
+                      "ms": min(ms), "ms_median": float(np.median(ms)),
+                      "plain_ms": plain_ms}
+    emit("resample", cases=recs)
+    for name, rec in recs.items():
+        check(rec["differ"] == 0 and rec["equal"] == rec["values"],
+              f"resample {name}: {rec['differ']} of {rec['values']} values "
+              f"differ from the plain version")
+    return recs
 
 
 def write_png(path, img, level=1):
@@ -4857,6 +4917,7 @@ def main() -> int:
          cuda=torch.version.cuda, name=torch.cuda.get_device_name(0),
          count=torch.cuda.device_count())
     tools = phase_host_tools()
+    phase_resample()
 
     from mo_yolo_tpu_torch.utils import cuda_build
     t0 = time.perf_counter()

@@ -20,8 +20,8 @@ arithmetic:
   libjpeg exist; elsewhere it raises, naming them (`Photometrics`'
   `compression_p` is 0, so the default pipeline never calls it).
 
-`mosaic4` resizes with `data/letterbox._resize` (bilinear with
-antialiasing, as PIL's `resize` is; at most one level off it).
+`mosaic4` resizes with `data/letterbox._resize`, PIL's
+`resize(BILINEAR)` exactly (`csrc/resample.c`).
 
 Geometric augmentations are sampled once per clip and applied to every
 frame (`ClipAugmenter`), or track geometry decoheres across time.

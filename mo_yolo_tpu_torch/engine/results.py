@@ -10,7 +10,9 @@ bands differ from the JAX package's frames). Files are written by suffix
 through `data/encode.py`: PNG by the port's own writer, JPEG by libjpeg,
 which raises naming what is missing where the machine lacks it.
 
-The task models fill `masks` (segment: instance masks blended at 40 %),
+The task models fill `masks` (segment: instance masks blended at 40 %,
+each brought to the frame's size as the JAX plot does, by PIL's BICUBIC
+resize of the thresholded mask, pixel for pixel the same),
 `keypoints` (pose: dots, and the COCO skeleton for 17 keypoints) and
 `probs` (classify: the top five classes written at the top left); their
 label rows are upstream's: `cls x1 y1 x2 y2 ...` of a mask's polygon, or
@@ -29,6 +31,7 @@ from typing import Dict, Optional
 import numpy as np
 
 from mo_yolo_tpu_torch.data.encode import write_image
+from mo_yolo_tpu_torch.data.letterbox import resample
 from mo_yolo_tpu_torch.utils import draw
 
 PALETTE = [(255, 56, 56), (56, 168, 255), (72, 249, 10), (255, 178, 29),
@@ -172,14 +175,14 @@ class TrackResults:
 
 
 def _masks_at(masks: np.ndarray, hw) -> np.ndarray:
-    """[n, h, w] masks as bool at the image's size (bilinear, then > 0.5)."""
-    m = np.asarray(masks, np.float32)
-    if m.shape[1:] != tuple(hw):
-        import torch
-        import torch.nn.functional as F
-        m = F.interpolate(torch.from_numpy(m)[None], size=tuple(hw),
-                          mode="bilinear", align_corners=False)[0].numpy()
-    return m > 0.5
+    """[n, h, w] masks as bool at the image's size, as the JAX plot makes
+    them: each thresholded at 0.5, as uint8 255 resized by PIL's BICUBIC
+    (`data/letterbox.resample`), then > 127."""
+    m = np.asarray(masks) > 0.5
+    if m.shape[1:] == tuple(hw):
+        return m
+    return np.stack([resample(mk.astype(np.uint8) * 255, hw, "bicubic")
+                     for mk in m]) > 127
 
 
 def mask_to_poly_n(mask: np.ndarray) -> np.ndarray:

@@ -7,6 +7,8 @@ package's `TrackResults`, which draws with PIL, on the CPU.
   boxes across and on the image's borders, thin and empty boxes included;
 - `plot()` with labels: the pixels differ only inside the label bands
   (PIL's default font against the port's bitmap font);
+- segment mask overlays, masks upscaled, downscaled or at the frame's
+  size: the same pixels (both resize by PIL's BICUBIC arithmetic);
 - `save_crop`: the same file names and crop shapes;
 - the PNG writer: read back equal by the port's decoder and by PIL; a
   JPEG where libjpeg is missing raises before a frame is stepped.
@@ -114,6 +116,41 @@ def test_labelled_plot_differs_only_in_the_label_bands():
     assert mask.mean() < 0.3
     np.testing.assert_array_equal(got[~mask], want[~mask])
     assert (got[mask] != p.orig_img[mask]).any()   # the labels are drawn
+
+
+def _soft_masks(n, hw, seed):
+    """n float masks in [0, 1]: soft ellipses with some values flipped, so
+    that the threshold at 0.5 and the resize both meet edges."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[:hw[0], :hw[1]] / np.asarray(hw, float)[:, None, None]
+    out = []
+    for _ in range(n):
+        cy, cx, ry, rx = rng.uniform([0.2, 0.2, 0.1, 0.1], [0.8, 0.8, 0.5,
+                                                            0.5])
+        d = np.hypot((yy - cy) / ry, (xx - cx) / rx)
+        m = np.clip(1.5 - d, 0.0, 1.0)
+        flip = rng.uniform(size=hw) < 0.03
+        m[flip] = 1.0 - m[flip]
+        out.append(m)
+    return np.stack(out).astype(np.float32)
+
+
+@pytest.mark.parametrize("mask_hw,hw", [((40, 60), (160, 240)),
+                                        ((160, 160), (120, 200)),
+                                        ((120, 200), (120, 200))],
+                         ids=["upscaled", "downscaled", "same"])
+def test_mask_overlay_is_the_jax_plot_pixel_for_pixel(mask_hw, hw):
+    """`plot(boxes=False, show_labels=False)` of a segment result: every
+    mask thresholded, brought to the frame's size and blended exactly as
+    the JAX plot does."""
+    j, p = _results(4, n=4, hw=hw)
+    masks = _soft_masks(len(p), mask_hw, seed=mask_hw[0])
+    j.masks, p.masks = masks, masks
+    kw = dict(boxes=False, show_labels=False)
+    got, want = p.plot(**kw), j.plot(**kw)
+    assert got.dtype == np.uint8 and got.shape == (*hw, 3)
+    np.testing.assert_array_equal(got, want)
+    assert (got != p.orig_img).mean() > 0.05       # the overlays are drawn
 
 
 def test_save_crop_names_and_shapes_equal_the_jax_ones(tmp_path):

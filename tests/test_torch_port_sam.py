@@ -22,10 +22,8 @@ Two JAX faults show here, each in its own test and in ROADMAP Queue 3:
   flax without the flip in space (`mo_yolo_tpu/utils/sam_import.py:32`),
   so its mask logits differ from the port's upstream-correct load.
 
-The facade tests resize with the JAX package's letterbox (PIL's
-bilinear) in both packages: the port's own letterbox is up to one level
-off PIL on some pixels (tests/test_torch_port_data.py), which moves
-logits by ~1e-3, and these tests hold SAM, not the resize. The mask NMS
+The facade tests run each package's own letterbox (the port's resize is
+PIL's arithmetic, tests/test_torch_port_resample.py). The mask NMS
 tests use distinct scores: `np.argsort(-s)` (the JAX loop)
 is not stable and the port's sort is, so equal scores could order
 differently.
@@ -277,21 +275,13 @@ def facades(encoder="vit"):
     return js, ps
 
 
-@pytest.fixture
-def pil_letterbox(monkeypatch):
-    """The port's facades letterbox with the JAX package's function."""
-    from mo_yolo_tpu.data import letterbox as jlb
-    from mo_yolo_tpu_torch.data import letterbox as plb
-    monkeypatch.setattr(plb, "letterbox", jlb.letterbox)
-
-
 def _uint8(seed, hw):
     return (np.random.default_rng(seed).uniform(0, 1, (*hw, 3)) * 255
             ).astype(np.uint8)
 
 
 @pytest.mark.parametrize("prompt", ["points", "box", "mixed"])
-def test_sam_call_matches_jax_on_a_letterboxed_image(prompt, pil_letterbox):
+def test_sam_call_matches_jax_on_a_letterboxed_image(prompt):
     """`SAM.__call__` on a 48x40 image (letterboxed with x padding):
     prompts mapped through the letterbox, the best multimask slot, its
     low-res logits, IoU and the bilinear up-scaled mask; then the cached
@@ -326,7 +316,7 @@ def _distinct(scores):
 
 
 @pytest.mark.parametrize("crop_layers,nms_iou", [(0, 0.5), (1, 0.3)])
-def test_generate_matches_jax(crop_layers, nms_iou, pil_letterbox):
+def test_generate_matches_jax(crop_layers, nms_iou):
     """Everything mode (grid 2, every mask kept by the filters): the same
     masks kept in the same order, scores within 1e-5; with crop layer 1
     the four crops' masks pasted back by the nearest resize."""
@@ -380,7 +370,7 @@ def test_mask_nms_at_the_threshold_equals_the_jax_loop(monkeypatch):
         np.testing.assert_array_equal(m[kept], want["masks"])
 
 
-def test_text_prompt_matches_jax(pil_letterbox):
+def test_text_prompt_matches_jax():
     """`text_prompt` end to end with the JAX tests' mock embedder (mean
     colour against colour words): the same best mask and text scores."""
     from tests.test_fastsam import MeanColorEmbedder
