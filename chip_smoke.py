@@ -6,14 +6,22 @@
 Phases, each printed as one JSON line:
 
 1. card: name and power limit (`nvidia-smi`); exits non-zero without a card;
-   host_tools: whether the host C compiler, jpeglib.h and libjpeg are
-   found (the frame decoder needs the compiler; JPEG needs the other two);
+   host_tools: whether the host C compiler is found (the frame decoders
+   and the host resize need it; nothing else: no libjpeg);
    resample: the host resize (`data/letterbox.resample`, PIL's
    `Image.resize` arithmetic in C, which the letterbox, mosaic and the
    mask overlays run) exactly against its plain numpy version on a 1080p
    frame into 800x1422 and a 480x640 frame into 640x640 (bilinear, 3
    channels) and a 160x160 mask into 1080x1920 (bicubic), with the ms of
    each;
+   jpeg: the port's JPEG codec (`data/jpeg.py`, host C, no libjpeg): its
+   decode of the fixtures PIL wrote (`tests/data/jpeg`: baseline 4:4:4,
+   4:2:2, 4:2:0, grey, 1x1 and other odd sizes, optimized tables, restart
+   markers, progressive) against the SHA-1 of PIL's decode, its encode of
+   seeded frames against the SHA-256 of PIL's bytes (`JPEG_DIGESTS`);
+   then the ms to decode a 1080p MOT17-like frame at quality 95 (one call,
+   and a frame with 8 threads at once), to encode it at 75, and to decode
+   the same frame as PNG;
 2. build: compiles every kernel of the paths from
    `mo_yolo_tpu_torch/ops/csrc` with nvcc (one process per source, all
    started together) and reports each instantiation's registers and spills
@@ -90,7 +98,10 @@ Phases, each printed as one JSON line:
    sync an error; decode, host letterbox and step ms a frame from an
    instrumented pass, frames/s from a second, untouched `val` call; then
    `MultiStreamValidator` with both sequences as one batch: its frames/s,
-   and in f32 its metrics against `TrackValidator`'s within 1e-4;
+   and in f32 its metrics against `TrackValidator`'s within 1e-4; then a
+   JPEG copy of the fixture in MOT17's layout (`img1/000001.jpg`, written
+   by the port's encoder at 95): 6 K1 and 1 greedy a frame, every metric
+   finite and in range, its decode ms a frame and frames/s beside PNG's;
 10. in_context: the same model at f32 and 640x640, with the kernel, with
    the plain sampler (`impl="torch"`) and with the one-hot route
    (`impl="onehot"`), holding boxes and ids to the plain sampler's;
@@ -127,8 +138,8 @@ Phases, each printed as one JSON line:
    autobatch choice and the probe's seconds), a 2-trial `track tune` of
    1 epoch on 3 x 5 frames, and `info(flops=True)`; 6 K1 and 1 greedy
    launches a frame, 60 K1, 30 K2 and 15 JV every training step (the
-   probe's too), no study kernel; where the host lacks libjpeg,
-   `save=true` with JPEG names must raise before a frame is stepped; then
+   probe's too), no study kernel; `track predict save=true` at the
+   default format writing one JPEG a frame, each read back; then
    `detect predict`, `detect val` (`yolo_mot`) and `rtdetr predict`
    (`detr_track`) at 640x640: 6 K1 a frame and nothing else;
 14. slice_configs (after the slice phase): one 1536x800 bf16 `stream_step`
@@ -206,6 +217,7 @@ from __future__ import annotations
 import contextlib
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -2323,20 +2335,17 @@ PERCENT_KEYS = ("HOTA", "DetA", "AssA", "LocA", "OWTA", "IDF1", "IDP", "IDR",
 
 
 def phase_host_tools():
-    """What the host C build finds: a compiler (the frame decoder needs
-    one), and jpeglib.h and libjpeg (JPEG decoding needs them; PNG does
-    not)."""
+    """What the host C build finds: a compiler, which the frame decoders
+    (PNG unfilter, the port's JPEG codec) and the host resize need; they
+    link nothing else but libm and libpthread."""
     from mo_yolo_tpu_torch.utils import cuda_build
     try:
         cc = cuda_build._cc()
     except RuntimeError:
         cc = None
-    missing = (cuda_build.missing_c_deps(("jpeglib.h",), ("jpeg",)) if cc
-               else ["jpeglib.h", "libjpeg"])
-    rec = {"cc": cc, "jpeglib.h": "jpeglib.h" not in missing,
-           "libjpeg": "libjpeg" not in missing}
+    rec = {"cc": cc}
     emit("host_tools", **rec)
-    check(cc is not None, "no host C compiler: the frame decoder cannot be "
+    check(cc is not None, "no host C compiler: the frame decoders cannot be "
           "built")
     return rec
 
@@ -2395,6 +2404,167 @@ def phase_resample(cases=RESAMPLE_CASES, iters=5):
     return recs
 
 
+# the JPEG phase: the fixtures PIL wrote (tests/data/jpeg, with the SHA-1
+# of PIL's decode of each); the encode cases (name, quality, h x w), whose
+# frames `jpeg_cases` makes; and the 1080p MOT17-like frame that is timed
+JPEG_FIXTURES = Path("tests") / "data" / "jpeg"
+JPEG_CASES = (("q1_1x1", 1, (1, 1)), ("q5_2x3", 5, (2, 3)),
+              ("q24_17x9", 24, (17, 9)), ("q25_33x47", 25, (33, 47)),
+              ("q50_64x80", 50, (64, 80)), ("q75_97x133", 75, (97, 133)),
+              ("q95_120x160", 95, (120, 160)), ("q100_72x96", 100, (72, 96)))
+JPEG_FRAME_QUALITY = 95     # the MOT17-like frames' JPEG quality
+# a sanity bound, not the parity check (the digests are): the mean error of
+# a q95 round trip of the MOT17-like frames (their texture is +-6 noise)
+JPEG_Q95_MEAN_ERROR = 4
+JPEG_THREADS = 8
+
+
+def jpeg_cases():
+    """[(name, uint8 [H, W, 3] frame, quality)] of `JPEG_CASES`: a gradient
+    with two boxes and noise from the raw bytes of numpy's
+    `default_rng(i)` (the bit generator's stream, the same in every numpy
+    release)."""
+    out = []
+    for i, (name, q, (h, w)) in enumerate(JPEG_CASES):
+        rng = np.random.default_rng(i)
+        y, x = np.mgrid[0:h, 0:w]
+        img = np.stack([x * 255 // max(w - 1, 1), y * 255 // max(h - 1, 1),
+                        (x + y) * 127 // max(h + w - 2, 1)], -1)
+        noise = np.frombuffer(rng.bytes(h * w * 3), np.uint8).reshape(
+            h, w, 3) % 48
+        img = np.clip(img + noise.astype(np.int64) - 24, 0, 255).astype(
+            np.uint8)
+        img[h // 3:2 * h // 3, w // 4:w // 2] = (230, 40, 60)
+        img[h // 2:, 2 * w // 3:] = (20, 200, 250)
+        out.append((name, img, q))
+    return out
+
+
+# SHA-256 of each `jpeg_cases` frame, and of PIL's `save(buf, "JPEG",
+# quality=q)` bytes of it (tests/test_torch_port_jpeg.py holds both to
+# numpy and PIL)
+JPEG_FRAME_DIGESTS = {
+    "q1_1x1":
+    "da4e3164c1facf1bc9b6c127376446b9e616c01e70453ba8e015ebf2a0ddbe46",
+    "q5_2x3":
+    "68b48ede5981d08cd107d50f2001f0fbf7e728cbd09965075a182cdd55f4bb5f",
+    "q24_17x9":
+    "94ef8e3235ee565118211b2071b353cfa0e09ca9259cbf081690c49c9cd3a4c5",
+    "q25_33x47":
+    "b1244d676bbf7dd46e1a9d750892f195664536675a994a690418c222ce1a9a8b",
+    "q50_64x80":
+    "834440b9662f578aa7f576bafbd1a149dfb48fdfb65d0e6c3eb792357cfca760",
+    "q75_97x133":
+    "bb9d20a1ed99358d62250ab54054b28bb36a4bfa3280d8d83b6d0cc2845715a7",
+    "q95_120x160":
+    "44a4fd0326cdf82f6cc09726322055abc1f2cb35e762f57360b4a721c4846be7",
+    "q100_72x96":
+    "9895630a23a18470451530e2d7ed56960849721f7883ff8e2de5eea931e5c718"}
+JPEG_DIGESTS = {
+    "q1_1x1":
+    "7efd9097af728037d996008bab93a2bb71442afe0d47f76e136bcbc6bc8dc8b1",
+    "q5_2x3":
+    "3da18db5a3e7801ad458bf6063a5f4ce5ce7a303c2dcf79d7de1d9278fd32fa8",
+    "q24_17x9":
+    "2a065f24a270bce35cf1b6922e99249c5669c216beed61f13fefd36d5acadd0f",
+    "q25_33x47":
+    "14f90d7d550dd0bebee31d48ed154fa5ce166ce9df7e4034442ea6e0dd04d2c9",
+    "q50_64x80":
+    "45854037f59bb6112a9ef8c95dd99b24ea31ab368e39b3ae8c38626a1a1a2421",
+    "q75_97x133":
+    "6c007ff80ae7355fe4b73ac631e25ca7576e1afae5901336ac39377d91d5699c",
+    "q95_120x160":
+    "8bea2a602d2655b4f3a903969ab0c10f83a4028bb42eac6493f5bfea55df43ab",
+    "q100_72x96":
+    "2cf8b3aa1a05c9681d087d70b62362d394f27b8183d9169f4f8508fde853251e"}
+
+
+def phase_jpeg(hw=VAL_HW, iters=5, threads=JPEG_THREADS):
+    """The port's JPEG codec (`data/jpeg.py`, host C built by the host
+    compiler, no libjpeg) on the card's host: its decode of every fixture
+    PIL wrote against the SHA-1 of PIL's decode (`tests/data/jpeg/
+    manifest.json`: baseline 4:4:4, 4:2:2 and 4:2:0, grey, sizes down to
+    1x1, optimized tables, restart markers, progressive); its encode of
+    each `jpeg_cases` frame against the SHA-256 of PIL's bytes
+    (`JPEG_DIGESTS`). Then times a 1080p MOT17-like frame (`mot_sequence`)
+    at quality 95, 4:2:0: the decode ms on one call, the ms a frame with
+    `threads` threads decoding at once (as the predictor's prefetch
+    workers do), the encode ms at 75, and the PNG decode of the same frame
+    (host clock; best and median of `iters`)."""
+    import hashlib
+    from concurrent.futures import ThreadPoolExecutor
+
+    from mo_yolo_tpu_torch.data.decode import decode_png
+    from mo_yolo_tpu_torch.data.encode import encode_png
+    from mo_yolo_tpu_torch.data.jpeg import decode_jpeg, encode_jpeg
+    folder = ROOT / JPEG_FIXTURES
+    manifest = json.loads((folder / "manifest.json").read_text())
+    decoded = {}
+    for name, want in manifest.items():
+        img = decode_jpeg((folder / name).read_bytes())
+        decoded[name] = {
+            "shape": list(img.shape),
+            "equal": list(img.shape) == want["shape"] and hashlib.sha1(
+                img.tobytes()).hexdigest() == want["sha1"]}
+    encoded = {}
+    for name, img, q in jpeg_cases():
+        data = encode_jpeg(img, q)
+        encoded[name] = {
+            "quality": q, "bytes": len(data),
+            "frame_equal": hashlib.sha256(img.tobytes()).hexdigest() ==
+            JPEG_FRAME_DIGESTS[name],
+            "equal": hashlib.sha256(data).hexdigest() == JPEG_DIGESTS[name]}
+
+    def best(fn):
+        ms = []
+        for _ in range(iters):
+            t = time.perf_counter()
+            out = fn()
+            ms.append((time.perf_counter() - t) * 1e3)
+        return out, min(ms), float(np.median(ms))
+    frame, _ = next(mot_sequence(0, 1, hw))
+    data, enc95_ms, enc95_med = best(
+        lambda: encode_jpeg(frame, JPEG_FRAME_QUALITY))
+    img, dec_ms, dec_med = best(lambda: decode_jpeg(data))
+    diff = np.abs(img.astype(np.int16) - frame)
+    n = threads * 4
+    with ThreadPoolExecutor(threads) as pool:
+        list(pool.map(decode_jpeg, [data] * threads))       # warm
+        t = time.perf_counter()
+        outs = list(pool.map(decode_jpeg, [data] * n))
+        threaded_ms = (time.perf_counter() - t) * 1e3 / n
+    same = all(np.array_equal(o, img) for o in outs)
+    data75, enc75_ms, enc75_med = best(lambda: encode_jpeg(frame, 75))
+    png = encode_png(frame)
+    _, png_ms, png_med = best(lambda: decode_png(png))
+    rec = {"fixtures": decoded, "encode_cases": encoded,
+           "timing_frame": {"hw": list(hw), "quality": JPEG_FRAME_QUALITY,
+                            "subsampling": "4:2:0", "bytes": len(data),
+                            "bytes_q75": len(data75), "png_bytes": len(png),
+                            "mean_abs_error": float(diff.mean()),
+                            "max_abs_error": int(diff.max())},
+           "decode_ms": dec_ms, "decode_ms_median": dec_med,
+           "decode_ms_per_frame_threaded": threaded_ms, "threads": threads,
+           "threaded_equal": same,
+           "encode_q75_ms": enc75_ms, "encode_q75_ms_median": enc75_med,
+           "encode_q95_ms": enc95_ms, "encode_q95_ms_median": enc95_med,
+           "png_decode_ms": png_ms, "png_decode_ms_median": png_med,
+           "cpu_count": os.cpu_count()}
+    emit("jpeg", **rec)
+    bad = [k for k, v in decoded.items() if not v["equal"]]
+    check(not bad and len(decoded) == len(manifest),
+          f"jpeg: the port's decode differs from PIL's on {bad}")
+    frames = [k for k, v in encoded.items() if not v["frame_equal"]]
+    check(not frames, f"jpeg: numpy made other frames for {frames}")
+    bad = [k for k, v in encoded.items() if not v["equal"]]
+    check(not bad, f"jpeg: the port's encode differs from PIL's bytes on "
+          f"{bad}")
+    check(same, "jpeg: threaded decodes differ from the single call")
+    check(diff.mean() < JPEG_Q95_MEAN_ERROR and img.shape == frame.shape,
+          f"jpeg: the 1080p q95 round trip is off by {diff.mean()} a value")
+    return rec
+
+
 def write_png(path, img, level=1):
     """An 8-bit RGB PNG of uint8 [H, W, 3] `img` written with stdlib zlib,
     row y filtered with type y % 5 (None, Sub, Up, Average, Paeth), so that
@@ -2428,50 +2598,78 @@ def write_png(path, img, level=1):
         chunk(b"IEND", b""))
 
 
+def mot_sequence(s, n_frames=VAL_FRAMES, hw=VAL_HW, n_obj=VAL_OBJECTS,
+                 seed=0):
+    """Frames of synthetic sequence `s`: a textured gradient with `n_obj`
+    coloured boxes moving at constant speed. Yields (uint8 [H, W, 3] frame,
+    its MOT gt rows)."""
+    h, w = hw
+    yy, xx = np.mgrid[0:h, 0:w]
+    rng = np.random.default_rng(seed + s)
+    base = np.stack([xx * 200 // w, yy * 200 // h,
+                     np.full_like(xx, 60 + 40 * s)], -1)
+    base = (base + rng.integers(0, 12, base.shape)).astype(np.uint8)
+    size = np.stack([rng.uniform(0.02, 0.06, n_obj) * w,
+                     rng.uniform(0.08, 0.24, n_obj) * h], -1)
+    c0 = rng.uniform(0.15, 0.85, (n_obj, 2)) * (w, h)
+    vel = rng.uniform(-6, 6, (n_obj, 2))
+    colour = rng.integers(0, 256, (n_obj, 3))
+    for t in range(n_frames):
+        img = base.copy()
+        rows = []
+        c = np.clip(c0 + t * vel, size / 2 + 1, (w, h) - size / 2 - 1)
+        for k in range(n_obj):
+            x0, y0 = (c[k] - size[k] / 2).astype(int)
+            x1, y1 = (c[k] + size[k] / 2).astype(int)
+            img[y0:y1, x0:x1] = colour[k]
+            rows.append([t + 1, k + 1, x0, y0, x1 - x0, y1 - y0, 1, 1, 1.0])
+        yield img, rows
+
+
 def mot_fixture(root, n_seq=VAL_SEQS, n_frames=VAL_FRAMES, hw=VAL_HW,
-                n_obj=VAL_OBJECTS, seed=0):
-    """Synthetic sequences in the MOT-challenge layout
+                n_obj=VAL_OBJECTS, seed=0, ext=".png"):
+    """Synthetic sequences (`mot_sequence`) in the MOT-challenge layout
     (`root/images/train/<seq>/img1/000001.png`, `gt/gt.txt`,
-    `seqinfo.ini`): a textured gradient with `n_obj` coloured boxes moving
-    at constant speed, written by `write_png`. Returns {real path of a
-    frame: sha1 of the array written}."""
+    `seqinfo.ini`), written by `write_png`, or with `ext=".jpg"` by the
+    port's JPEG encoder at `JPEG_FRAME_QUALITY` (MOT17's own layout,
+    `imExt=.jpg`).
+    Returns {real path of a frame: sha1 of the frame a decoder must give}
+    (for a JPEG, the port's decode of the bytes written, made here), and
+    for a JPEG fixture also the mean and largest absolute difference of
+    those decodes from the frames encoded, under the key "jpeg_error"."""
     import hashlib
 
+    from mo_yolo_tpu_torch.data.jpeg import decode_jpeg, encode_jpeg
     from mo_yolo_tpu_torch.data.mot_challenge import write_mot_gt
     h, w = hw
-    digests = {}
-    yy, xx = np.mgrid[0:h, 0:w]
+    digests, err = {}, []
     for s in range(n_seq):
-        rng = np.random.default_rng(seed + s)
         seq = Path(root) / "images" / "train" / f"MOT17-{s + 1:02d}"
         (seq / "img1").mkdir(parents=True)
-        base = np.stack([xx * 200 // w, yy * 200 // h,
-                         np.full_like(xx, 60 + 40 * s)], -1)
-        base = (base + rng.integers(0, 12, base.shape)).astype(np.uint8)
-        size = np.stack([rng.uniform(0.02, 0.06, n_obj) * w,
-                         rng.uniform(0.08, 0.24, n_obj) * h], -1)
-        c0 = rng.uniform(0.15, 0.85, (n_obj, 2)) * (w, h)
-        vel = rng.uniform(-6, 6, (n_obj, 2))
-        colour = rng.integers(0, 256, (n_obj, 3))
         rows = []
-        for t in range(n_frames):
-            img = base.copy()
-            c = np.clip(c0 + t * vel, size / 2 + 1, (w, h) - size / 2 - 1)
-            for k in range(n_obj):
-                x0, y0 = (c[k] - size[k] / 2).astype(int)
-                x1, y1 = (c[k] + size[k] / 2).astype(int)
-                img[y0:y1, x0:x1] = colour[k]
-                rows.append([t + 1, k + 1, x0, y0, x1 - x0, y1 - y0, 1, 1,
-                             1.0])
-            path = seq / "img1" / f"{t + 1:06d}.png"
-            write_png(path, img)
+        for t, (img, frame_rows) in enumerate(
+                mot_sequence(s, n_frames, hw, n_obj, seed)):
+            rows += frame_rows
+            path = seq / "img1" / f"{t + 1:06d}{ext}"
+            if ext == ".png":
+                write_png(path, img)
+                want = img
+            else:
+                data = encode_jpeg(img, JPEG_FRAME_QUALITY)
+                path.write_bytes(data)
+                want = decode_jpeg(data)
+                diff = np.abs(want.astype(np.int16) - img)
+                err.append((float(diff.mean()), int(diff.max())))
             digests[str(path.resolve())] = hashlib.sha1(
-                img.tobytes()).hexdigest()
+                want.tobytes()).hexdigest()
         write_mot_gt(str(seq / "gt" / "gt.txt"), rows)
         (seq / "seqinfo.ini").write_text(
             f"[Sequence]\nname={seq.name}\nimDir=img1\nframeRate=30\n"
             f"seqLength={n_frames}\nimWidth={w}\nimHeight={h}\n"
-            f"imExt=.png\n")
+            f"imExt={ext}\n")
+    if err:
+        digests["jpeg_error"] = {"mean": float(np.mean([e[0] for e in err])),
+                                 "max": max(e[1] for e in err)}
     return digests
 
 
@@ -2669,6 +2867,7 @@ def phase_val(cfg="yolo_track", imgsz="1536x800", dtype="bfloat16",
         launches = counts()
         multi = multistream_val(tracker.model, imgsz, yaml_path, cfg, device,
                                 metrics)
+        jpeg = jpeg_val(tracker, tmp, n_frames, hw, sync)
     n = VAL_SEQS * n_frames
     n_layers = len(tracker.model.head.decoder.decoder.layers)
     seq_ids = [np.concatenate(ids[i * n_frames:(i + 1) * n_frames])
@@ -2690,7 +2889,7 @@ def phase_val(cfg="yolo_track", imgsz="1536x800", dtype="bfloat16",
            "first_id_per_sequence": [int(i.min()) if len(i) else None
                                      for i in seq_ids],
            "ids_per_sequence": [len(set(i.tolist())) for i in seq_ids],
-           "metrics": metrics, "multistream": multi}
+           "metrics": metrics, "multistream": multi, "jpeg": jpeg}
     emit("val", **rec)
     check(decoded["frames"] == n and decoded["equal"] == n,
           f"val: decoded frames {decoded} of {n} equal to those written")
@@ -2701,6 +2900,21 @@ def phase_val(cfg="yolo_track", imgsz="1536x800", dtype="bfloat16",
         check(0 <= metrics[k] <= 100, f"val: {k} = {metrics[k]}")
     check(metrics["MOTA"] <= 100 and metrics["IDSW"] >= 0 and
           metrics["fps"] > 0, f"val: {metrics}")
+    jm = jpeg["metrics"]
+    dec = jpeg["decoded_equal"]
+    check(dec["equal"] == dec["frames"] == dec["jpeg_files"] == n,
+          f"val (JPEG): decoded frames {dec} of {n} equal to the port's "
+          f"decode when written")
+    for k in PERCENT_KEYS + ("MOTA", "IDSW", "fps"):
+        check(k in jm and math.isfinite(jm[k]),
+              f"val (JPEG): metric {k} missing or not finite: {jm.get(k)}")
+    for k in PERCENT_KEYS:
+        check(0 <= jm[k] <= 100, f"val (JPEG): {k} = {jm[k]}")
+    check(jm["MOTA"] <= 100 and jm["IDSW"] >= 0,
+          f"val (JPEG): {jm}")
+    check(jpeg["round_trip_error"]["mean"] < JPEG_Q95_MEAN_ERROR,
+          f"val (JPEG): frames off by {jpeg['round_trip_error']} after the "
+          f"q95 round trip")
     check(all(len(i) for i in seq_ids), "val: a sequence has no track")
     check(seq_ids[1].min() == seq_ids[0].min(),
           f"val: ids do not restart with the second sequence "
@@ -2712,6 +2926,11 @@ def phase_val(cfg="yolo_track", imgsz="1536x800", dtype="bfloat16",
               f"sampler and {n} of the greedy suppression")
         check(strict_steps == [VAL_SYNC_FRAME],
               "val: no step ran with host syncs as errors")
+        jl = jpeg["launches"]
+        check(jl["ms_deform_attn_fwd"] == n_layers * n and
+              jl["greedy_keep"] == n and jl["jv_assign"] == 0,
+              f"val (JPEG): launches {jl}, expected {n_layers} x {n} of the "
+              f"sampler and {n} of the greedy suppression")
         check(multi["launches"]["ms_deform_attn_fwd"] ==
               n_layers * n_frames and
               multi["launches"]["greedy_keep"] == n_frames and
@@ -2720,6 +2939,62 @@ def phase_val(cfg="yolo_track", imgsz="1536x800", dtype="bfloat16",
               f"expected {n_layers} x {n_frames} of the sampler and "
               f"{n_frames} of the greedy suppression (one a batched frame)")
     return rec
+
+
+def jpeg_val(tracker, tmp, n_frames, hw, sync):
+    """`val` on a JPEG copy of the evaluation fixture in MOT17's own layout
+    (`img1/000001.jpg`, `imExt=.jpg`), written by the port's encoder at
+    `JPEG_FRAME_QUALITY`: one call with only the frame decode wrapped
+    (timed, and each frame checked against the port's decode of the bytes
+    written, hashed outside the timing). Frames/s leave out the
+    hashing."""
+    import hashlib
+    import os
+
+    from mo_yolo_tpu_torch.data import dataset as ds_mod
+    from mo_yolo_tpu_torch.data.mot_challenge import convert_mot_to_yolo
+    t0 = time.perf_counter()
+    digests = mot_fixture(Path(tmp) / "raw_jpg", n_frames=n_frames, hw=hw,
+                          ext=".jpg")
+    write_s = time.perf_counter() - t0
+    error = digests.pop("jpeg_error")
+    yaml_path = convert_mot_to_yolo(str(Path(tmp) / "raw_jpg"),
+                                    str(Path(tmp) / "yolo_jpg"))
+    load = ds_mod.load_image
+    ms, hash_s = [], [0.0]
+    decoded = {"frames": 0, "equal": 0, "jpeg_files": 0}
+
+    def timed_load(path):
+        t = time.perf_counter()
+        img = load(path)
+        ms.append((time.perf_counter() - t) * 1e3)
+        t = time.perf_counter()
+        decoded["frames"] += 1
+        decoded["jpeg_files"] += str(path).lower().endswith(".jpg")
+        decoded["equal"] += (hashlib.sha1(img.tobytes()).hexdigest() ==
+                             digests.get(os.path.realpath(path)))
+        hash_s[0] += time.perf_counter() - t
+        return img
+
+    ds_mod.load_image = timed_load
+    sync()
+    reset_counts()
+    t0 = time.perf_counter()
+    try:
+        metrics = tracker.val(yaml_path, split="train")
+    finally:
+        ds_mod.load_image = load
+    val_s = time.perf_counter() - t0
+    launches = counts()
+    n = VAL_SEQS * n_frames
+    return {"frames": n, "quality": JPEG_FRAME_QUALITY,
+            "fixture_write_s": write_s,
+            "round_trip_error": error, "decoded_equal": decoded,
+            "decode_ms_per_frame": float(np.mean(ms)),
+            "decode_ms_per_frame_median": float(np.median(ms)),
+            "val_frames_per_s": n / (val_s - hash_s[0]),
+            "validator_fps": metrics["fps"], "launches": launches,
+            "metrics": metrics}
 
 
 # the multi-stream validator's metrics against the single-stream one's:
@@ -3177,7 +3452,7 @@ STEP_LAUNCHES = {"ms_deform_attn_fwd": 60, "ms_deform_attn_bwd": 30,
 def phase_cli(cfg="yolo_track", imgsz="1536x800", device=None,
               hw=VAL_HW, n_frames=CLI_FRAMES, train_hw=CLI_TRAIN_HW,
               train_seqs=CLI_TRAIN_SEQS, tune_seqs=CLI_TUNE_SEQS,
-              host_tools=None, detect_models=DETECT_MODELS,
+              detect_models=DETECT_MODELS,
               detect_imgsz=DETECT_IMGSZ, **model_kw):
     """The command line, in process, through
     `mo_yolo_tpu_torch.cli.main`, on a model saved by the facade (full
@@ -3193,8 +3468,8 @@ def phase_cli(cfg="yolo_track", imgsz="1536x800", device=None,
     (the probe's steps too), no study kernel. Then `detect predict` and
     `detect val` of `detect_models[0]` and `rtdetr predict` of
     `detect_models[1]` at `detect_imgsz`: 6 K1 a frame and nothing else.
-    Where the host has no libjpeg, `save=true` with JPEG names must raise
-    before a frame is stepped."""
+    `track predict save=true` at the default `save_format` writes one JPEG
+    a frame (the port's own codec), each read back at the frame's size."""
     import functools
     import tempfile
 
@@ -3248,24 +3523,27 @@ def phase_cli(cfg="yolo_track", imgsz="1536x800", device=None,
                       ("take_along_axis",) + VARIANT_KERNELS),
                   f"cli {what}: a study kernel launched: {launches}")
 
-        # the JPEG refusal where the host has no libjpeg
-        if host_tools is not None and not host_tools["libjpeg"]:
-            reset_counts()
-            try:
-                cli(["track", "predict", f"model={model}",
-                     f"source={seq_dir}", "save=true", "verbose=false",
-                     f"save_dir={tmp / 'jpg'}", *common])
-                refused = None
-            except RuntimeError as e:
-                refused = str(e)
-            check(refused is not None and "jpeg" in refused.lower(),
-                  f"cli predict: save=true (JPEG) without libjpeg did not "
-                  f"raise naming it: {refused}")
-            check(sum(counts().values()) == 0,
-                  "cli predict: a frame was stepped before the JPEG refusal")
-            rec["jpeg_refusal"] = refused
-        else:
-            rec["jpeg_refusal"] = "not checked: this host has libjpeg"
+        # predict at the default save_format: one JPEG a frame, by the
+        # port's own encoder, read back by its decoder at the frame's size
+        from mo_yolo_tpu_torch.data.jpeg import decode_jpeg
+        jpg_dir = tmp / "jpg"
+        secs, launches = run("predict", f"model={model}",
+                             f"source={seq_dir}", "save=true",
+                             "verbose=false", f"save_dir={jpg_dir}")
+        jpgs = sorted(jpg_dir.glob("*.jpg"))
+        shapes = [decode_jpeg(p.read_bytes()).shape for p in jpgs]
+        rec["predict_jpeg"] = {"seconds": secs, "launches": launches,
+                               "files": len(jpgs),
+                               "bytes": sum(p.stat().st_size for p in jpgs),
+                               "shapes_ok": sum(sh == (*hw, 3)
+                                                for sh in shapes)}
+        check(len(jpgs) == n_frames and all(sh == (*hw, 3)
+                                            for sh in shapes),
+              f"cli predict save=true: {len(jpgs)} JPEGs for {n_frames} "
+              f"frames, shapes {set(shapes)}")
+        check(not on_card or launches["ms_deform_attn_fwd"] == 6 * n_frames
+              and launches["greedy_keep"] == n_frames,
+              f"cli predict save=true (JPEG): launches {launches}")
 
         # predict: annotated PNG frames, label files, MOT rows
         pred = tmp / "pred"
@@ -4916,8 +5194,9 @@ def main() -> int:
     emit("card", nvidia_smi=card, torch=torch.__version__,
          cuda=torch.version.cuda, name=torch.cuda.get_device_name(0),
          count=torch.cuda.device_count())
-    tools = phase_host_tools()
+    phase_host_tools()
     phase_resample()
+    phase_jpeg()
 
     from mo_yolo_tpu_torch.utils import cuda_build
     t0 = time.perf_counter()
@@ -4950,7 +5229,7 @@ def main() -> int:
     phase_in_context()
     train = phase_train()
     trainer = phase_trainer(train_step_ms=train["step_ms_median"])
-    cli = phase_cli(host_tools=tools)
+    cli = phase_cli()
     detect = phase_detect()
     rtdetr = phase_detect("RTDETR", DETECT_MODELS[1], epochs=1, steps=2,
                           validate=False, track=False)

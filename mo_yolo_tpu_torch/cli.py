@@ -197,12 +197,9 @@ def _checks() -> None:
         except RuntimeError as e:
             return f"MISSING ({e})"
     print(f"nvcc: {found(cuda_build._nvcc)}")
-    cc = found(cuda_build._cc)
-    print(f"host compiler: {cc}")
-    if not cc.startswith("MISSING"):
-        missing = cuda_build.missing_c_deps(("jpeglib.h",), ("jpeg",))
-        state = "ok" if not missing else "MISSING " + ", ".join(missing)
-        print(f"libjpeg: {state} (JPEG decoding and writing)")
+    print(f"host compiler: {found(cuda_build._cc)}")
+    print("JPEG: the port's own codec (data/csrc/jpeg.c, built by the host "
+          "compiler; no libjpeg)")
 
 
 def _special(cmd: str, rest) -> int:

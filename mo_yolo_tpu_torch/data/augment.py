@@ -16,9 +16,10 @@ arithmetic:
   `Image.transform(AFFINE | PERSPECTIVE, BILINEAR)` does (the test states
   its difference against PIL);
 - `blur` and `median_blur` are PIL's `BoxBlur` and `MedianFilter`;
-- `jpeg_compression` is a libjpeg round trip, where `jpeglib.h` and
-  libjpeg exist; elsewhere it raises, naming them (`Photometrics`'
-  `compression_p` is 0, so the default pipeline never calls it).
+- `jpeg_compression` is a round trip through the port's own JPEG codec
+  (`data/jpeg.py`), PIL's `save(..., quality=q)` bytes decoded as PIL
+  decodes them (`Photometrics`' `compression_p` is 0, so the default
+  pipeline never calls it).
 
 `mosaic4` resizes with `data/letterbox._resize`, PIL's
 `resize(BILINEAR)` exactly (`csrc/resample.c`).
@@ -36,6 +37,7 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 
+from mo_yolo_tpu_torch.data.jpeg import decode_jpeg, encode_jpeg
 from mo_yolo_tpu_torch.data.letterbox import _resize
 from mo_yolo_tpu_torch.utils import cuda_build
 
@@ -370,22 +372,9 @@ def gamma(img: np.ndarray, g: float) -> np.ndarray:
 
 
 def jpeg_compression(img: np.ndarray, quality: int) -> np.ndarray:
-    """The image saved as a JPEG at `quality` and decoded again, through
-    libjpeg; raises, naming what is missing, where it is not there."""
-    lib = cuda_build.load_c(SRC, libs=("m", "jpeg"), headers=("jpeglib.h",),
-                            defines=("AUGMENT_JPEG",))
-    fn = cuda_build.bind(lib, "jpeg_roundtrip",
-                         [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                          ctypes.c_int, ctypes.c_void_p])
-    img = np.ascontiguousarray(img, np.uint8)
-    out = np.empty_like(img)
-    if fn(img.ctypes.data, img.shape[0], img.shape[1], int(quality),
-          out.ctypes.data) != 0:
-        last = cuda_build.bind(lib, "jpeg_roundtrip_error", [],
-                               ctypes.c_char_p)
-        raise ValueError(f"JPEG round trip: "
-                         f"{last().decode(errors='replace')}")
-    return out
+    """The image saved as a JPEG at `quality` and decoded again."""
+    return decode_jpeg(encode_jpeg(np.ascontiguousarray(img, np.uint8),
+                                   int(quality)))
 
 
 @dataclasses.dataclass

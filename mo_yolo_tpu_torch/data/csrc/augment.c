@@ -5,9 +5,8 @@
  * (the card's machine has no PIL): the colour conversions behind
  * `convert("HSV")`, `convert("RGB")` from HSV and YCbCr, `convert("L")` and
  * `convert("YCbCr")`; `Image.transform(AFFINE | PERSPECTIVE, BILINEAR)`;
- * `ImageFilter.BoxBlur` and `ImageFilter.MedianFilter`; and, built only with
- * -DAUGMENT_JPEG and -ljpeg, a JPEG round trip at a quality. Each one
- * repeats PIL's own arithmetic (its types, its rounding, its edge rules),
+ * `ImageFilter.BoxBlur` and `ImageFilter.MedianFilter` (the JPEG round trip
+ * is the port's own codec, `jpeg.c`). Each one repeats PIL's own arithmetic (its types, its rounding, its edge rules),
  * so that the port's augmented frames equal the JAX package's; the tests
  * hold each against PIL (the conversions on all 2^24 inputs).
  *
@@ -264,79 +263,3 @@ void median_filter(const uint8_t* in, uint8_t* out, int h, int w, int k) {
     }
   }
 }
-
-/* ------------------------------------------------------------------- JPEG */
-
-#ifdef AUGMENT_JPEG
-#include <setjmp.h>
-#include <stdio.h>
-#include <jpeglib.h>
-
-struct aug_error {
-  struct jpeg_error_mgr pub;
-  jmp_buf jump;
-};
-static char aug_last_error[JMSG_LENGTH_MAX];
-
-static void aug_error_exit(j_common_ptr cinfo) {
-  struct aug_error* err = (struct aug_error*)cinfo->err;
-  (*cinfo->err->format_message)(cinfo, aug_last_error);
-  longjmp(err->jump, 1);
-}
-
-const char* jpeg_roundtrip_error(void) { return aug_last_error; }
-
-/* Encode the RGB image at `quality` with libjpeg's defaults (4:2:0, islow
- * DCT, baseline tables), as PIL's save(..., "JPEG", quality=q) does, and
- * decode it back with libjpeg's defaults into `out`. Returns 0, or -1 on a
- * libjpeg error (its message from jpeg_roundtrip_error). */
-int jpeg_roundtrip(const uint8_t* in, int h, int w, int quality,
-                   uint8_t* out) {
-  struct jpeg_compress_struct cc;
-  struct jpeg_decompress_struct dc;
-  struct aug_error err;
-  unsigned char* buf = NULL;
-  unsigned long size = 0;
-  int have_c = 0, have_d = 0;
-  cc.err = jpeg_std_error(&err.pub);
-  dc.err = cc.err;
-  err.pub.error_exit = aug_error_exit;
-  if (setjmp(err.jump)) {
-    if (have_c) jpeg_destroy_compress(&cc);
-    if (have_d) jpeg_destroy_decompress(&dc);
-    free(buf);
-    return -1;
-  }
-  jpeg_create_compress(&cc);
-  have_c = 1;
-  jpeg_mem_dest(&cc, &buf, &size);
-  cc.image_width = (JDIMENSION)w;
-  cc.image_height = (JDIMENSION)h;
-  cc.input_components = 3;
-  cc.in_color_space = JCS_RGB;
-  jpeg_set_defaults(&cc);
-  jpeg_set_quality(&cc, quality, TRUE);
-  jpeg_start_compress(&cc, TRUE);
-  while (cc.next_scanline < cc.image_height) {
-    JSAMPROW row = (JSAMPROW)(in + (size_t)cc.next_scanline * w * 3);
-    jpeg_write_scanlines(&cc, &row, 1);
-  }
-  jpeg_finish_compress(&cc);
-  jpeg_destroy_compress(&cc);
-  have_c = 0;
-  jpeg_create_decompress(&dc);
-  have_d = 1;
-  jpeg_mem_src(&dc, buf, size);
-  jpeg_read_header(&dc, TRUE);
-  dc.out_color_space = JCS_RGB;
-  jpeg_start_decompress(&dc);
-  while (dc.output_scanline < dc.output_height) {
-    JSAMPROW row = (JSAMPROW)(out + (size_t)dc.output_scanline * w * 3);
-    jpeg_read_scanlines(&dc, &row, 1);
-  }
-  jpeg_finish_decompress(&dc);
-  jpeg_destroy_decompress(&dc);
-  free(buf);
-  return 0;
-}
-#endif

@@ -8,12 +8,7 @@
  * library. Average and Paeth depend on the byte just decoded to their left,
  * so a row is a sequential loop, which numpy cannot express in one call.
  *
- * JPEG (built only with -DDECODE_JPEG and -ljpeg): libjpeg decodes to RGB,
- * as `native/frameloader.cpp`'s `decode_jpeg` does, with libjpeg's default
- * settings (islow IDCT, fancy upsampling), which are PIL's too. A libjpeg
- * error ends the decode through longjmp and returns -1; its message is
- * kept for the caller (one message for the process: calls from several
- * threads at once share it).
+ * JPEG is the port's own codec, `jpeg.c`.
  *
  * Plain C entry points, bound with ctypes. */
 
@@ -76,78 +71,3 @@ int png_unfilter(const uint8_t* src, uint8_t* dst, int height,
   }
   return 0;
 }
-
-#ifdef DECODE_JPEG
-#include <setjmp.h>
-#include <stdio.h>
-
-#include <jpeglib.h>
-
-struct error_mgr {
-  struct jpeg_error_mgr pub;
-  jmp_buf env;
-};
-
-static char last_error[JMSG_LENGTH_MAX];
-
-static void on_error(j_common_ptr ci) {
-  (*ci->err->format_message)(ci, last_error);
-  longjmp(((struct error_mgr*)ci->err)->env, 1);
-}
-
-static void on_message(j_common_ptr ci) { (void)ci; } /* warnings: quiet */
-
-/* The message of the last failed decode. */
-const char* jpeg_last_error(void) { return last_error; }
-
-/* Decode the JPEG file at `path` to RGB. With out == NULL only reads the
- * header: *w and *h are set. Else out holds h * w * 3 bytes for the *w, *h
- * of the header call. Returns 0, or -1 on a libjpeg error or a file that
- * does not open. */
-int jpeg_decode(const char* path, uint8_t* out, int* w, int* h) {
-  struct jpeg_decompress_struct cinfo;
-  struct error_mgr err;
-  FILE* f = fopen(path, "rb");
-  last_error[0] = 0;
-  if (!f) {
-    strcpy(last_error, "cannot open the file");
-    return -1;
-  }
-  cinfo.err = jpeg_std_error(&err.pub);
-  err.pub.error_exit = on_error;
-  err.pub.output_message = on_message;
-  if (setjmp(err.env)) {
-    jpeg_destroy_decompress(&cinfo);
-    fclose(f);
-    return -1;
-  }
-  jpeg_create_decompress(&cinfo);
-  jpeg_stdio_src(&cinfo, f);
-  jpeg_read_header(&cinfo, TRUE);
-  cinfo.out_color_space = JCS_RGB;
-  if (out == NULL) {
-    jpeg_calc_output_dimensions(&cinfo);
-    *w = (int)cinfo.output_width;
-    *h = (int)cinfo.output_height;
-    jpeg_destroy_decompress(&cinfo);
-    fclose(f);
-    return 0;
-  }
-  jpeg_start_decompress(&cinfo);
-  if ((int)cinfo.output_width != *w || (int)cinfo.output_height != *h ||
-      cinfo.output_components != 3) {
-    strcpy(last_error, "the image changed between header and decode");
-    jpeg_destroy_decompress(&cinfo);
-    fclose(f);
-    return -1;
-  }
-  while (cinfo.output_scanline < cinfo.output_height) {
-    JSAMPROW row = out + (size_t)cinfo.output_scanline * (size_t)(*w) * 3;
-    jpeg_read_scanlines(&cinfo, &row, 1);
-  }
-  jpeg_finish_decompress(&cinfo);
-  jpeg_destroy_decompress(&cinfo);
-  fclose(f);
-  return 0;
-}
-#endif

@@ -9,9 +9,8 @@ through PIL's `.convert("RGB")` (`mo_yolo_tpu/data/loaders.py:47`).
   palette also at 1, 2 and 4) convert as PIL converts them: gray repeated
   over three channels (scaled to 0-255 below 8 bits), alpha dropped, the
   palette looked up. 16-bit and interlaced images raise.
-- JPEG: libjpeg through the same C file, built with it at first use.
-  Where `jpeglib.h` or libjpeg is missing, decoding a JPEG raises and names
-  what is missing.
+- JPEG: the port's own codec, `data/jpeg.py` (`csrc/jpeg.c`), equal to
+  PIL's decode pixel for pixel; `JPEG_MAGIC` routes a file to it.
 - BMP: uncompressed 24- and 32-bit images (BI_RGB, or BI_BITFIELDS with
   byte-aligned masks), bottom-up or top-down, rows padded to 4 bytes, in
   numpy; the fourth byte of a 32-bit pixel is dropped, as PIL's RGB
@@ -26,7 +25,6 @@ import ctypes
 import struct
 import zlib
 from pathlib import Path
-from typing import Union
 
 import numpy as np
 
@@ -44,11 +42,6 @@ def _unfilter():
     return cuda_build.bind(cuda_build.load_c(SRC), "png_unfilter",
                   [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
                    ctypes.c_longlong, ctypes.c_int])
-
-
-def _jpeg_lib() -> ctypes.CDLL:
-    return cuda_build.load_c(SRC, libs=("jpeg",), headers=("jpeglib.h",),
-                             defines=("DECODE_JPEG",))
 
 
 def decode_png(data: bytes) -> np.ndarray:
@@ -108,23 +101,6 @@ def decode_png(data: bytes) -> np.ndarray:
             gray = gray * np.uint8(255 // ((1 << depth) - 1))
         return np.repeat(gray[..., None], 3, -1)
     return np.ascontiguousarray(px[..., :3])
-
-
-def decode_jpeg(path: Union[str, Path]) -> np.ndarray:
-    """The JPEG file at `path` -> uint8 [H, W, 3] RGB, through libjpeg."""
-    lib = _jpeg_lib()
-    fn = cuda_build.bind(lib, "jpeg_decode",
-                [ctypes.c_char_p, ctypes.c_void_p,
-                 ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int)])
-    last = cuda_build.bind(lib, "jpeg_last_error", [], ctypes.c_char_p)
-    name = str(path).encode()
-    w, h = ctypes.c_int(), ctypes.c_int()
-    if fn(name, None, ctypes.byref(w), ctypes.byref(h)) != 0:
-        raise ValueError(f"{path}: {last().decode(errors='replace')}")
-    out = np.empty((h.value, w.value, 3), np.uint8)
-    if fn(name, out.ctypes.data, ctypes.byref(w), ctypes.byref(h)) != 0:
-        raise ValueError(f"{path}: {last().decode(errors='replace')}")
-    return out
 
 
 def decode_bmp(data: bytes) -> np.ndarray:

@@ -5,16 +5,12 @@ arrays to PNG and JPEG files, chosen by the name's suffix.
   every row filtered with Sub; level 1 deflates an annotated 1080p frame
   in less than half the time of PIL's level 6, for files ~20 % larger);
   `data/decode.py` and PIL read it back.
-- JPEG: libjpeg through `csrc/encode.c` at quality 75 (PIL's default),
-  built at first use. Where jpeglib.h or libjpeg is missing, writing a
-  JPEG raises and names what is missing; `check_writable` raises the same
-  before anything is written. Another format is never written in place
-  of a JPEG.
+- JPEG: the port's own encoder (`data/jpeg.py`) at quality 75, PIL's
+  default: the bytes of PIL's `save(path)`, byte for byte.
 """
 
 from __future__ import annotations
 
-import ctypes
 import struct
 import zlib
 from pathlib import Path
@@ -22,16 +18,11 @@ from typing import Union
 
 import numpy as np
 
-from mo_yolo_tpu_torch.utils import cuda_build
+from mo_yolo_tpu_torch.data.jpeg import encode_jpeg
 
-SRC = Path(__file__).resolve().parent / "csrc" / "encode.c"
 JPEG_SUFFIXES = (".jpg", ".jpeg")
 SUFFIXES = (".png",) + JPEG_SUFFIXES
 JPEG_QUALITY = 75
-
-
-def _jpeg_lib() -> ctypes.CDLL:
-    return cuda_build.load_c(SRC, libs=("jpeg",), headers=("jpeglib.h",))
 
 
 def _suffix(path) -> str:
@@ -44,9 +35,8 @@ def _suffix(path) -> str:
 
 def check_writable(path) -> None:
     """Raise now if an image named `path` could not be written: a suffix
-    not taken, or a JPEG where the machine lacks jpeglib.h or libjpeg."""
-    if _suffix(path) in JPEG_SUFFIXES:
-        _jpeg_lib()
+    not taken."""
+    _suffix(path)
 
 
 def encode_png(img: np.ndarray, level: int = 1) -> bytes:
@@ -82,17 +72,10 @@ def write_image(path: Union[str, Path], img: np.ndarray) -> str:
     if suffix == ".png":
         Path(path).write_bytes(encode_png(img))
         return str(path)
-    lib = _jpeg_lib()
-    fn = cuda_build.bind(lib, "jpeg_encode",
-                         [ctypes.c_char_p, ctypes.c_void_p, ctypes.c_int,
-                          ctypes.c_int, ctypes.c_int])
-    last = cuda_build.bind(lib, "jpeg_encode_error", [], ctypes.c_char_p)
-    img = np.ascontiguousarray(img, np.uint8)
+    img = np.asarray(img, np.uint8)
     if img.ndim == 2:
-        img = np.ascontiguousarray(np.repeat(img[..., None], 3, -1))
+        img = np.repeat(img[..., None], 3, -1)
     if img.ndim != 3 or img.shape[2] != 3:
         raise ValueError(f"expected [H, W, 3] or [H, W], got {img.shape}")
-    if fn(str(path).encode(), img.ctypes.data, img.shape[0], img.shape[1],
-          JPEG_QUALITY) != 0:
-        raise ValueError(f"{path}: {last().decode(errors='replace')}")
+    Path(path).write_bytes(encode_jpeg(img, JPEG_QUALITY))
     return str(path)

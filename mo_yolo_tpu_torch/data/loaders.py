@@ -3,12 +3,13 @@
 `ArraySource`, `TensorSource` and `make_source` from
 `mo_yolo_tpu/data/loaders.py`).
 
-Images decode through the port's own decoder (`data/decode.py`: PNG,
-JPEG and uncompressed BMP; `.npy` frames through numpy), not PIL. TIFF
-and WebP frames raise, naming the codec library they need. Video files, URL streams,
-webcams and screenshots raise: the JAX package reads them through an
-ffmpeg binary, a camera and a display, which the machine with the card
-does not have; PIL images are not taken either (no PIL there).
+Images decode through the port's own decoders (`data/decode.py`: PNG
+and uncompressed BMP; `data/jpeg.py`: JPEG; `.npy` frames through numpy),
+not PIL. TIFF and WebP frames raise, naming the codec library they need.
+Video files, URL streams, webcams and screenshots raise: the JAX package
+reads them through an ffmpeg binary, a camera and a display, which the
+machine with the card does not have; PIL images are not taken either (no
+PIL there).
 """
 
 from __future__ import annotations
@@ -22,7 +23,8 @@ import numpy as np
 import torch
 
 from mo_yolo_tpu_torch.data.decode import (BMP_MAGIC, JPEG_MAGIC, PNG_MAGIC,
-                                           decode_bmp, decode_jpeg, decode_png)
+                                           decode_bmp, decode_png)
+from mo_yolo_tpu_torch.data.jpeg import decode_jpeg
 
 # the JAX package's list, so that a folder lists the same files; PNG, JPEG
 # and BMP among them decode here
@@ -69,7 +71,10 @@ def load_image(path: Union[str, Path]) -> np.ndarray:
     if data[:8] == PNG_MAGIC:
         return decode_png(data)
     if data[:2] == JPEG_MAGIC:
-        return decode_jpeg(path)
+        try:
+            return decode_jpeg(data)
+        except ValueError as e:
+            raise ValueError(f"{path}: {e}") from None
     if data[:2] == BMP_MAGIC:
         return decode_bmp(data)
     for magic, kind, lib in ((b"II*\x00", "TIFF", "libtiff"),

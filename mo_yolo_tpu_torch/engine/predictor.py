@@ -156,8 +156,8 @@ class TrackPredictor:
         """Yield TrackResults per frame of `source` (see `_frames`);
         optionally write MOT txt (`save_mot`), annotated frames (`save`,
         `<save_dir>/<stem>.<save_format>`, jpg or png) and crops
-        (`save_crop`, jpg, under `<save_dir>/crops`). A JPEG that the
-        machine cannot write raises before the first frame is stepped."""
+        (`save_crop`, jpg, under `<save_dir>/crops`). A `save_format`
+        that is not written raises before the first frame is stepped."""
         opts = dict(save=save, save_crop=save_crop, save_dir=save_dir,
                     line_width=line_width, show_labels=show_labels,
                     show_conf=show_conf, boxes=boxes, show=show,

@@ -7,8 +7,8 @@ JAX package's PIL `ImageDraw.rectangle`, the same 8-colour palette by
 track id, and labels `id:N name conf` in a bitmap font of the port's own
 (PIL's default font cannot be reproduced without PIL, so only the label
 bands differ from the JAX package's frames). Files are written by suffix
-through `data/encode.py`: PNG by the port's own writer, JPEG by libjpeg,
-which raises naming what is missing where the machine lacks it.
+through `data/encode.py`: PNG by the port's own writer, JPEG by the
+port's own encoder (PIL's bytes for the same frame).
 
 The task models fill `masks` (segment: instance masks blended at 40 %,
 each brought to the frame's size as the JAX plot does, by PIL's BICUBIC

@@ -13,9 +13,10 @@ launch path every wrapper shares, kept short because a kernel of the main
 path runs for less time than the host takes to launch it.
 
 `load_c` does the same for one plain C source run on the host (the frame
-decoder, `data/csrc/decode.c`): compiled with `cc` (which nvcc needs, so
-the card's machine has one) into `build/host_libs/`, keyed by a hash of
-the source, the flags and the libraries it links.
+decoders `data/csrc/decode.c` and `jpeg.c`, the resize, the
+augmentations): compiled with `cc` (which nvcc needs, so the card's
+machine has one) into `build/host_libs/`, keyed by a hash of the source,
+the flags and the libraries it links.
 """
 
 from __future__ import annotations
@@ -148,37 +149,26 @@ def _cc() -> str:
                        "needed to build the port's host code")
 
 
-def missing_c_deps(headers: Sequence[str] = (),
-                   libs: Sequence[str] = ()) -> List[str]:
-    """Those of `headers` the host compiler cannot include and of `libs`
-    (names as for -l) the loader cannot find, as "jpeglib.h", "libjpeg"."""
-    out = []
-    for header in headers:
-        probe = subprocess.run([_cc(), "-E", "-x", "c", "-"],
-                               input=f"#include <{header}>\n",
-                               capture_output=True, text=True, timeout=60)
-        if probe.returncode != 0:
-            out.append(header)
-    out += [f"lib{lib}" for lib in libs
+def missing_c_deps(libs: Sequence[str] = ()) -> List[str]:
+    """Those of `libs` (names as for -l) the loader cannot find, as
+    "libz"."""
+    return [f"lib{lib}" for lib in libs
             if ctypes.util.find_library(lib) is None]
-    return out
 
 
-def load_c(src: Path, libs: Sequence[str] = (), headers: Sequence[str] = (),
-           defines: Sequence[str] = ()) -> ctypes.CDLL:
-    """The shared library built from the C file `src` with -D`defines`,
-    linked with -l`libs`, building it if needed. Raises naming whatever of
-    `headers` and `libs` cannot be found, and with the compiler's output if
-    the build fails."""
-    key = (str(src), tuple(libs), tuple(defines))
+def load_c(src: Path, libs: Sequence[str] = ()) -> ctypes.CDLL:
+    """The shared library built from the C file `src`, linked with
+    -l`libs`, building it if needed. Raises naming whatever of `libs`
+    cannot be found, and with the compiler's output if the build fails."""
+    key = (str(src), tuple(libs))
     lib = _loaded_c.get(key)
     if lib is not None:
         return lib
-    missing = missing_c_deps(headers, libs)
+    missing = missing_c_deps(libs)
     if missing:
         raise RuntimeError(f"building {src.name} needs {', '.join(missing)}, "
                            f"which this machine does not have")
-    flags = CC_FLAGS + tuple(f"-D{d}" for d in defines)
+    flags = CC_FLAGS
     digest = hashlib.sha256(src.read_bytes())
     digest.update(" ".join(flags + tuple(libs)).encode())
     out = HOST_BUILD_DIR / f"lib{src.stem}-{digest.hexdigest()[:16]}.so"

@@ -129,8 +129,8 @@ def test_png_with_each_row_filter_decodes_exactly(filt, gray, tmp_path):
                                                  (95, 0)])
 def test_jpeg_written_by_pil_decodes_as_pil_does(quality, subsampling,
                                                  tmp_path):
-    """4:2:0 (subsampling 2) and 4:4:4 (0); the system libjpeg and PIL's
-    give the same pixels."""
+    """4:2:0 (subsampling 2) and 4:4:4 (0): the port's codec gives PIL's
+    pixels."""
     from mo_yolo_tpu_torch.data.loaders import load_image
     path = tmp_path / "frame.jpg"
     Image.fromarray(_frame(45, 61, seed=quality + subsampling)).save(
@@ -152,22 +152,18 @@ def test_png_the_decoder_does_not_take_raises(what, tmp_path):
         load_image(path)
 
 
-def test_jpeg_without_libjpeg_raises_naming_it(tmp_path, monkeypatch):
-    """No silent fallback: where libjpeg cannot be found, decoding a JPEG
-    raises and names it; PNG decoding does not need it."""
-    import ctypes.util
-
+def test_jpeg_decodes_without_libjpeg(tmp_path, monkeypatch):
+    """Where libjpeg and jpeglib.h cannot be found (the card's machine), a
+    JPEG decodes all the same, through the port's codec built afresh, to
+    PIL's pixels; PNG decoding is untouched."""
     from mo_yolo_tpu_torch.data.loaders import load_image
-    from mo_yolo_tpu_torch.utils import cuda_build
+    from tests.torch_port_common import hide_libjpeg
     path = tmp_path / "frame.jpg"
     Image.fromarray(_frame()).save(path)
     Image.fromarray(_frame()).save(tmp_path / "frame.png")
-    find = ctypes.util.find_library
-    monkeypatch.setattr(ctypes.util, "find_library",
-                        lambda name: None if name == "jpeg" else find(name))
-    monkeypatch.setattr(cuda_build, "_loaded_c", {})
-    with pytest.raises(RuntimeError, match="libjpeg"):
-        load_image(path)
+    hide_libjpeg(monkeypatch, tmp_path / "build")
+    np.testing.assert_array_equal(load_image(path), _pil_rgb(path))
+    assert any((tmp_path / "build").glob("libjpeg-*.so"))
     np.testing.assert_array_equal(load_image(tmp_path / "frame.png"),
                                   _frame())
 

@@ -10,8 +10,8 @@ package's `TrackResults`, which draws with PIL, on the CPU.
 - segment mask overlays, masks upscaled, downscaled or at the frame's
   size: the same pixels (both resize by PIL's BICUBIC arithmetic);
 - `save_crop`: the same file names and crop shapes;
-- the PNG writer: read back equal by the port's decoder and by PIL; a
-  JPEG where libjpeg is missing raises before a frame is stepped.
+- the PNG writer: read back equal by the port's decoder and by PIL; with
+  libjpeg hidden, `stream(save=True)` writes PIL's JPEG bytes a frame.
 """
 
 import numpy as np
@@ -188,27 +188,33 @@ def test_save_writes_the_plot_and_refuses_other_suffixes(tmp_path):
     assert jpg.shape == (H, W, 3)
 
 
-def test_jpeg_save_without_libjpeg_raises_before_a_frame_is_stepped(
-        monkeypatch):
-    """Where jpeglib.h is missing, `stream(save=True)` (JPEG by default)
-    raises naming it before the model sees a frame; PNG still writes."""
+def test_jpeg_save_without_libjpeg_writes_every_frame(monkeypatch,
+                                                     tmp_path):
+    """Where jpeglib.h and libjpeg are missing (the card's machine),
+    `stream(save=True)` at the default format writes one JPEG a frame
+    through the port's own codec: PIL's bytes for the plotted frame, read
+    back by the port's decoder as PIL reads them; crops are JPEGs too."""
+    import io
+
+    from mo_yolo_tpu_torch.data.loaders import load_image
     from mo_yolo_tpu_torch.engine.predictor import TrackPredictor
     from mo_yolo_tpu_torch.models.tracking_model import build_tracking_model
-    from mo_yolo_tpu_torch.utils import cuda_build
-    monkeypatch.setattr(cuda_build, "_loaded_c", {})
-    monkeypatch.setattr(cuda_build, "missing_c_deps",
-                        lambda headers=(), libs=(): ["jpeglib.h", "libjpeg"])
+    from tests.torch_port_common import hide_libjpeg
+    hide_libjpeg(monkeypatch, tmp_path / "build")
     model = build_tracking_model("tiny_track", device="cpu", nq=8)
-
-    def no_step(*a, **kw):
-        raise AssertionError("a frame was stepped")
-    monkeypatch.setattr(model, "stream_step", no_step)
-    frames = np.zeros((2, 64, 64, 3), np.uint8)
-    pred = TrackPredictor(model, imgsz=64, device="cpu")
-    with pytest.raises(RuntimeError, match="jpeglib.h"):
-        next(pred.stream(frames, save=True))
-    with pytest.raises(RuntimeError, match="libjpeg"):
-        next(pred.stream(frames, save_crop=True, save=True,
-                         save_format="png"))
-    with pytest.raises(AssertionError, match="stepped"):
-        next(pred.stream(frames, save=True, save_format="png"))
+    frames = np.random.default_rng(0).integers(0, 256, (2, 64, 64, 3),
+                                               np.uint8)
+    pred = TrackPredictor(model, imgsz=64, device="cpu", conf=0.0)
+    out = tmp_path / "pred"
+    results = list(pred.stream(frames, save=True, save_crop=True,
+                               save_dir=str(out)))
+    assert len(results) == len(sorted(out.glob("*.jpg"))) == len(frames)
+    for res in results:
+        path = out / f"{res.path}.jpg"
+        buf = io.BytesIO()
+        Image.fromarray(res.plot(line_width=2)).save(buf, "JPEG")
+        assert path.read_bytes() == buf.getvalue()
+        np.testing.assert_array_equal(
+            load_image(path), np.asarray(Image.open(path).convert("RGB")))
+    crops = sorted((out / "crops").rglob("*.jpg"))
+    assert crops and all(load_image(c).ndim == 3 for c in crops)

@@ -222,3 +222,22 @@ def check_full_width(name: str, detect: bool = False):
         assert tuple(sd[k].shape) == tuple(t.shape), k
     pm.load_state_dict(sd, strict=True)
     return pm
+
+
+def hide_libjpeg(monkeypatch, build_dir):
+    """The card's machine for the port's host code: libjpeg cannot be
+    found, and the host libraries are built afresh in `build_dir`."""
+    import ctypes.util
+
+    from mo_yolo_tpu_torch.utils import cuda_build
+    find = ctypes.util.find_library
+    monkeypatch.setattr(ctypes.util, "find_library",
+                        lambda name: None if name == "jpeg" else find(name))
+    deps = cuda_build.missing_c_deps
+
+    def missing(libs=()):
+        return [f"lib{lib}" for lib in libs if lib == "jpeg"] + \
+            deps([lib for lib in libs if lib != "jpeg"])
+    monkeypatch.setattr(cuda_build, "missing_c_deps", missing)
+    monkeypatch.setattr(cuda_build, "_loaded_c", {})
+    monkeypatch.setattr(cuda_build, "HOST_BUILD_DIR", Path(build_dir))
