@@ -78,6 +78,21 @@ Phases, each printed as one JSON line:
    frames through `stream_step` with every host sync an error, and through
    one `stream_step` captured as a CUDA graph and replayed frame by frame,
    its outputs equal to the eager ones;
+   formats (after the slice phase): the port's TIFF and WebP decoders
+   (`data/tiff.py`, `data/webp.py`, host C, no libtiff or libwebp): every
+   fixture of `tests/data/{tiff,webp}` against the SHA-1 of PIL's decode,
+   the ms of the 1080p lossy and lossless WebP fixtures and a 1080p
+   Deflate TIFF (one call, and 8 threads at once), and the slice phase's
+   1536x800 bf16 tracker's `predict` over a folder of 12 WebP frames: 6
+   K1 and 1 greedy launch a frame;
+   sources: video as the JAX package reads it, through an ffmpeg pipe:
+   a stand-in `ffmpeg`/`ffprobe` (`tests/ffmpeg_stub.py`; the card's
+   machine has none) first on PATH serves 24 synthetic 1080p frames as
+   `clip.mp4`; `predict(vid_stride=2, save=True)` on the same tracker:
+   12 frames, `clip.mp4#<i>` paths, the frames served, `clip_<n>.jpg`
+   written and read back, frames/s, 6 K1 and 1 greedy launch a kept
+   frame; then a `StreamSource` over a stand-in `rtsp://` URL with
+   `max_frames`: an ordered subset of the frames, no ffmpeg left running;
 9. profile: where a frame's time goes at each size (host clock per stage,
    device kernel time and idle share from torch.profiler);
    multistream: 1, 4 and 8 streams of synthetic 1080p frames in lockstep
@@ -107,7 +122,7 @@ Phases, each printed as one JSON line:
    (`impl="onehot"`), holding boxes and ids to the plain sampler's;
 11. train: the clip training step (`train.train_step.make_train_step`) at
    full `yolo_track` width, bf16 autocast, 1536x800, 5-frame synthetic
-   clips with remat and the default AdamW: one warm-up and three timed
+   clips with remat and the default AdamW: one warm-up and two timed
    steps (loss, grad norm, step time, frames/s, peak memory, kernel
    launches per step: 15 of the matcher and no scipy call), then one
    profiled step, then `ClipOptimizer.step` with every host sync an
@@ -115,9 +130,9 @@ Phases, each printed as one JSON line:
    warning (counted and placed) and every matcher call's an error;
    trainer: training through `MOTRTrack(...).train` at full `yolo_track`
    width, 1536x800, bf16 autocast over f32 parameters, on a MOT-layout
-   fixture it writes (3 sequences x 5 PNG frames at 1920x1080, converted
+   fixture it writes (2 sequences x 5 PNG frames at 1920x1080, converted
    by `convert_mot_to_yolo`; the last sequence doubles as val): 2 epochs
-   of 3 steps, 5-frame clips, augmentation, accumulate 2, validation each
+   of 2 steps, 5-frame clips, augmentation, accumulate 3, validation each
    epoch; checks finite losses, 60 K1 and 30 K2 launches a step, 6 K1 and
    1 greedy a val frame, the run's files, the best EMA in the facade;
    times a step through the trainer, the host's decoding, augmentation
@@ -174,7 +189,7 @@ Phases, each printed as one JSON line:
 17. export: the serialized step (`MOTRTrack.export(fmt="pt2")`, K1 and
    the greedy kernel as registered ops, loaded by `AutoBackend`) at full
    `yolo_track` width, 1536x800 bf16: the export's and load's seconds,
-   the `.pt2`'s MB, the program's op nodes (6 K1, 1 greedy), 20 frames
+   the `.pt2`'s MB, the program's op nodes (6 K1, 1 greedy), 8 frames
    through the eager step and the loaded program (equal bit for bit,
    state too; 6 K1 and 1 greedy launches a frame), both through the
    slice phase's `stream_graph` (no host sync, frames/s, a CUDA graph's
@@ -260,7 +275,7 @@ LONG_CASES = [(f"{name}_{spread}", dict(levels=LEVELS["1536x800"], q=q,
               for name, q in Q_LONG.items()
               for spread, loc_range in (("uniform", (-0.05, 1.05)),
                                         ("clustered", CLUSTERED))]
-CLIP_LEN, TRAIN_STEPS = 5, 3
+CLIP_LEN, TRAIN_STEPS = 5, 2
 # two 16-byte pieces a lane took K1 to this many registers a thread and
 # ran it slower (fewer warps in flight); the kernels on K1's skeleton are
 # held under it, with at most this many bytes of spill
@@ -2034,8 +2049,9 @@ def phase_train(imgsz="1536x800", T=CLIP_LEN, steps=TRAIN_STEPS,
     for c in launches:
         check(c == want or not on_card,
               f"train: launches {c} per step, expected {want}")
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    # device activity only: `_device_split` and `_kernel_ms` read device
+    # rows, and the host side of a step's trace is slow to process
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         ts, m = step_fn(ts, clip, gen)
         float(m["loss"])
@@ -2515,17 +2531,10 @@ def phase_jpeg(hw=VAL_HW, iters=5, threads=JPEG_THREADS):
             JPEG_FRAME_DIGESTS[name],
             "equal": hashlib.sha256(data).hexdigest() == JPEG_DIGESTS[name]}
 
-    def best(fn):
-        ms = []
-        for _ in range(iters):
-            t = time.perf_counter()
-            out = fn()
-            ms.append((time.perf_counter() - t) * 1e3)
-        return out, min(ms), float(np.median(ms))
     frame, _ = next(mot_sequence(0, 1, hw))
-    data, enc95_ms, enc95_med = best(
-        lambda: encode_jpeg(frame, JPEG_FRAME_QUALITY))
-    img, dec_ms, dec_med = best(lambda: decode_jpeg(data))
+    data, enc95_ms, enc95_med = _best_ms(
+        lambda: encode_jpeg(frame, JPEG_FRAME_QUALITY), iters)
+    img, dec_ms, dec_med = _best_ms(lambda: decode_jpeg(data), iters)
     diff = np.abs(img.astype(np.int16) - frame)
     n = threads * 4
     with ThreadPoolExecutor(threads) as pool:
@@ -2534,9 +2543,10 @@ def phase_jpeg(hw=VAL_HW, iters=5, threads=JPEG_THREADS):
         outs = list(pool.map(decode_jpeg, [data] * n))
         threaded_ms = (time.perf_counter() - t) * 1e3 / n
     same = all(np.array_equal(o, img) for o in outs)
-    data75, enc75_ms, enc75_med = best(lambda: encode_jpeg(frame, 75))
+    data75, enc75_ms, enc75_med = _best_ms(lambda: encode_jpeg(frame, 75),
+                                           iters)
     png = encode_png(frame)
-    _, png_ms, png_med = best(lambda: decode_png(png))
+    _, png_ms, png_med = _best_ms(lambda: decode_png(png), iters)
     rec = {"fixtures": decoded, "encode_cases": encoded,
            "timing_frame": {"hw": list(hw), "quality": JPEG_FRAME_QUALITY,
                             "subsampling": "4:2:0", "bytes": len(data),
@@ -2562,6 +2572,257 @@ def phase_jpeg(hw=VAL_HW, iters=5, threads=JPEG_THREADS):
     check(same, "jpeg: threaded decodes differ from the single call")
     check(diff.mean() < JPEG_Q95_MEAN_ERROR and img.shape == frame.shape,
           f"jpeg: the 1080p q95 round trip is off by {diff.mean()} a value")
+    return rec
+
+
+# the formats phase: the TIFF and WebP fixtures (tests/data/{tiff,webp},
+# each with the SHA-1 of PIL's decode); the 1080p files it times; the
+# WebP frames `MOTRTrack.predict` reads
+FORMAT_FIXTURES = ("tiff", "webp")
+FORMAT_TIMED = ("scene_1080p_q90.webp", "scene_1080p_lossless.webp")
+FORMAT_FRAMES = 12
+# the sources phase: a clip of SOURCE_FRAMES synthetic 1080p frames read
+# every SOURCE_STRIDE-th; a stream read for STREAM_FRAMES frames
+SOURCE_FRAMES, SOURCE_STRIDE, STREAM_FRAMES = 24, 2, 4
+
+
+def _fixture_module(kind):
+    """tests/data/<kind>/make_fixtures.py as a module of its own name."""
+    import importlib.util
+    path = ROOT / "tests" / "data" / kind / "make_fixtures.py"
+    spec = importlib.util.spec_from_file_location(f"{kind}_fixtures", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _best_ms(fn, iters):
+    ms = []
+    for _ in range(iters):
+        t = time.perf_counter()
+        out = fn()
+        ms.append((time.perf_counter() - t) * 1e3)
+    return out, min(ms), float(np.median(ms))
+
+
+def _check_predict(what, results, launches, n_layers, n, on_card):
+    check(len(results) == n, f"{what}: {len(results)} results, {n} frames")
+    for r in results:
+        check(np.isfinite(np.asarray(r.boxes_xyxy, np.float64)).all(),
+              f"{what}: non-finite boxes")
+    if on_card:
+        check(launches["ms_deform_attn_fwd"] == n_layers * n and
+              launches["greedy_keep"] == n,
+              f"{what}: launches {launches}, expected {n_layers} x {n} of "
+              f"the sampler and {n} of the greedy suppression")
+        others = {k: v for k, v in launches.items()
+                  if k not in ("ms_deform_attn_fwd", "greedy_keep") and v}
+        check(not others, f"{what}: other kernels launched: {others}")
+
+
+def phase_formats(tracker=None, iters=5, threads=JPEG_THREADS,
+                  n_predict=FORMAT_FRAMES):
+    """The port's TIFF and WebP decoders (`data/tiff.py`, `data/webp.py`,
+    host C, no libtiff or libwebp) on the card's host: `load_image` of
+    every fixture of `tests/data/{tiff,webp}` against the SHA-1 of PIL's
+    decode in their manifests (TIFF: each compression, strips, tiles,
+    planar, the photometric interpretations, both byte orders, the
+    predictor, fill order 2, orientations; WebP: lossy, lossless, alpha,
+    an animation's first frame at an offset, VP8X metadata); then the ms to
+    decode the 1080p lossy and lossless WebP fixtures and a 1080p Deflate
+    TIFF with the predictor (one call, best and median of `iters`, and a
+    frame with `threads` threads at once). With `tracker`, its `predict`
+    over a folder of `n_predict` WebP frames (the two 1080p fixtures in
+    turn): every frame decoded to its digest, frames/s, and 6 K1 and 1
+    greedy launch a frame."""
+    import hashlib
+    import shutil
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch
+
+    from mo_yolo_tpu_torch.data.loaders import load_image
+    from mo_yolo_tpu_torch.data.tiff import decode_tiff
+    from mo_yolo_tpu_torch.data.webp import decode_webp
+    manifests, decoded = {}, {}
+    for kind in FORMAT_FIXTURES:
+        folder = ROOT / "tests" / "data" / kind
+        manifests[kind] = json.loads((folder / "manifest.json").read_text())
+        for name, want in manifests[kind].items():
+            img = load_image(folder / name)
+            decoded[name] = list(img.shape) == want["shape"] and hashlib.sha1(
+                img.tobytes()).hexdigest() == want["sha1"]
+    webp_dir = ROOT / "tests" / "data" / "webp"
+    timed = [(name, (webp_dir / name).read_bytes(), decode_webp)
+             for name in FORMAT_TIMED]
+    timed.append(("tiff_1080p_deflate_predictor.tif",
+                  _fixture_module("tiff").tiff_1080p(), decode_tiff))
+    timing = {}
+    for name, data, fn in timed:
+        img, ms, med = _best_ms(lambda: fn(data), iters)
+        n = threads * 4
+        with ThreadPoolExecutor(threads) as pool:
+            list(pool.map(fn, [data] * threads))               # warm
+            t = time.perf_counter()
+            outs = list(pool.map(fn, [data] * n))
+            threaded = (time.perf_counter() - t) * 1e3 / n
+        timing[name] = {"bytes": len(data), "shape": list(img.shape),
+                        "decode_ms": ms, "decode_ms_median": med,
+                        "decode_ms_per_frame_threaded": threaded,
+                        "threaded_equal": all(np.array_equal(o, img)
+                                              for o in outs)}
+    rec = {"fixtures": decoded, "timing": timing, "threads": threads,
+           "cpu_count": os.cpu_count()}
+    if tracker is not None:
+        on_card = tracker.device.type == "cuda"
+        n_layers = len(tracker.model.head.decoder.decoder.layers)
+        (ROOT / "build").mkdir(exist_ok=True)
+        with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+            for i in range(n_predict):
+                shutil.copy(webp_dir / FORMAT_TIMED[i % 2],
+                            Path(tmp) / f"{i:06d}.webp")
+            if on_card:
+                torch.cuda.synchronize()
+            reset_counts()
+            t = time.perf_counter()
+            results = list(tracker.predict(tmp, conf=0.5))
+            seconds = time.perf_counter() - t
+            launches = counts()
+        sha = manifests["webp"]
+        frames_equal = all(
+            hashlib.sha1(r.orig_img.tobytes()).hexdigest() ==
+            sha[FORMAT_TIMED[i % 2]]["sha1"] for i, r in enumerate(results))
+        rec["predict"] = {"imgsz": tracker.imgsz, "frames": len(results),
+                          "seconds": seconds, "fps": len(results) / seconds,
+                          "launches": launches,
+                          "frames_equal": frames_equal,
+                          "card": card_line() if on_card else None}
+    emit("formats", **rec)
+    bad = [k for k, v in decoded.items() if not v]
+    check(not bad and len(decoded) == sum(map(len, manifests.values())),
+          f"formats: the port's decode differs from PIL's on {bad}")
+    check(all(t["threaded_equal"] for t in timing.values()),
+          "formats: threaded decodes differ from the single call")
+    if tracker is not None:
+        check(frames_equal, "formats: a predicted WebP frame differs from "
+              "its fixture's digest")
+        _check_predict("formats", results, launches, n_layers, n_predict,
+                       on_card)
+    return rec
+
+
+def phase_sources(tracker, n_frames=SOURCE_FRAMES, stride=SOURCE_STRIDE,
+                  stream_frames=STREAM_FRAMES, hw=(1080, 1920)):
+    """Video through `MOTRTrack.predict` as the JAX package reads it (an
+    ffmpeg rawvideo pipe, `data/loaders.VideoSource`). The card's machine
+    has no ffmpeg: a stand-in `ffmpeg`/`ffprobe` (`tests/ffmpeg_stub.py`,
+    Python run by this interpreter) goes first on PATH and serves
+    `n_frames` synthetic 1080p frames as `clip.mp4`; the phase reports
+    which binary ran. `predict(source=clip.mp4, vid_stride=stride,
+    save=True)`: every `stride`-th frame, named `clip.mp4#<i>`, equal to
+    the frame served; the saved JPEGs `clip_<n>.jpg` read back at 1080p;
+    frames/s; 6 K1 and 1 greedy launch a kept frame. Then a
+    `StreamSource` over a stand-in `rtsp://` URL with `max_frames`: an
+    ordered subset of the served frames, the stream's ffmpeg ended."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from mo_yolo_tpu_torch.data.loaders import StreamSource, load_image
+    sys.path.insert(0, str(ROOT))
+    from tests import ffmpeg_stub
+    on_card = tracker.device.type == "cuda"
+    n_layers = len(tracker.model.head.decoder.decoder.layers)
+    frames = np.stack(static_scene(n_frames, hw=hw, seed=3))
+    env_keys = ("PATH", ffmpeg_stub.STREAM_ENV, ffmpeg_stub.FPS_ENV,
+                ffmpeg_stub.LOG_ENV)
+    saved_env = {k: os.environ.get(k) for k in env_keys}
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        tmp = Path(tmp)
+        system_ffmpeg = shutil.which("ffmpeg")
+        (tmp / "bin").mkdir()
+        ffmpeg_stub.install(tmp / "bin")
+        log = tmp / "calls.jsonl"
+        try:
+            os.environ["PATH"] = f"{tmp / 'bin'}{os.pathsep}" \
+                                 f"{os.environ.get('PATH', '')}"
+            os.environ[ffmpeg_stub.LOG_ENV] = str(log)
+            used = shutil.which("ffmpeg")
+            clip = tmp / "clip.mp4"
+            with open(clip, "wb") as f:
+                np.save(f, frames)
+            if on_card:
+                torch.cuda.synchronize()
+            reset_counts()
+            t = time.perf_counter()
+            results = list(tracker.predict(str(clip), vid_stride=stride,
+                                           save=True, conf=0.5,
+                                           save_dir=str(tmp / "out")))
+            seconds = time.perf_counter() - t
+            launches = counts()
+            kept = list(range(0, n_frames, stride))
+            paths_ok = [r.path for r in results] == [
+                f"{clip}#{i:06d}" for i in kept]
+            frames_ok = all(np.array_equal(r.orig_img, frames[i])
+                            for r, i in zip(results, kept))
+            saved = sorted(p.name for p in (tmp / "out").glob("*.jpg"))
+            read_back = [load_image(tmp / "out" / n).shape for n in saved]
+            # a live stream (the clip's frames, 50 a second), read slower
+            # than it is served
+            os.environ[ffmpeg_stub.STREAM_ENV] = str(clip)
+            os.environ[ffmpeg_stub.FPS_ENV] = "50"
+            url = "rtsp://camera.local/stream"
+            got = []
+            for name, img in StreamSource(url, max_frames=stream_frames):
+                got.append((name, next(i for i in range(n_frames) if
+                                       np.array_equal(img, frames[i]))))
+                time.sleep(0.05)
+            calls = [json.loads(line) for line in
+                     log.read_text().splitlines()] if log.exists() else []
+        finally:
+            for k, v in saved_env.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+        alive = []
+        for c in calls:
+            try:
+                with open(f"/proc/{c['pid']}/stat") as f:
+                    if f.read().rsplit(")", 1)[1].split()[0] != "Z":
+                        alive.append(c["pid"])
+            except (FileNotFoundError, IndexError):
+                pass
+    idx = [i for _, i in got]
+    rec = {"ffmpeg": used, "stub": True, "system_ffmpeg": system_ffmpeg,
+           "clip": {"frames": n_frames, "hw": list(hw), "vid_stride": stride},
+           "imgsz": tracker.imgsz, "kept_frames": len(results),
+           "paths_equal": paths_ok, "frames_equal": frames_ok,
+           "saved": saved, "saved_shapes": [list(s) for s in read_back],
+           "seconds": seconds, "fps": len(results) / seconds,
+           "launches": launches,
+           "stream": {"names": [n for n, _ in got], "served_index": idx},
+           "ffmpeg_calls": [c["tool"] for c in calls],
+           "ffmpeg_alive_after": alive,
+           "card": card_line() if on_card else None}
+    emit("sources", **rec)
+    check(used == str(tmp / "bin" / "ffmpeg"),
+          f"sources: PATH found {used}, not the stand-in")
+    check(paths_ok and frames_ok,
+          "sources: the predicted frames are not the clip's kept frames")
+    check(saved == [f"clip_{n:06d}.jpg" for n in range(len(kept))] and
+          all(s == (*hw, 3) for s in read_back),
+          f"sources: saved {saved} {read_back}")
+    _check_predict("sources", results, launches, n_layers, len(kept),
+                   on_card)
+    check([n for n, _ in got] == [f"{url}#{i:06d}"
+                                  for i in range(stream_frames)] and
+          idx == sorted(set(idx)),
+          f"sources: the stream gave {got}")
+    check(not alive, f"sources: ffmpeg processes {alive} still run")
     return rec
 
 
@@ -3066,11 +3327,11 @@ def multistream_val(model, imgsz, yaml_path, cfg, device, metrics):
 
 # ----------------------------------------------------------------- trainer
 
-# 3 sequences of 5 frames: 3 clips, so 3 steps an epoch, odd against
-# accumulate 2: the first epoch's last_full is saved mid-accumulation
-TRAINER_SEQS, TRAINER_FRAMES, TRAINER_EPOCHS = 3, 5, 2
+# 2 sequences of 5 frames: 2 clips, so 2 steps an epoch, short of
+# accumulate 3: the first epoch's last_full is saved mid-accumulation
+TRAINER_SEQS, TRAINER_FRAMES, TRAINER_EPOCHS = 2, 5, 2
 TRAINER_KW = dict(epochs=TRAINER_EPOCHS, batch=1, clip_len=CLIP_LEN,
-                  accumulate=2, augment=True, val_every=1, log_every=1)
+                  accumulate=3, augment=True, val_every=1, log_every=1)
 
 
 def state_tensors(ts):
@@ -3185,8 +3446,8 @@ def phase_trainer(cfg="yolo_track", imgsz="1536x800", device=None,
     from the fixture, bf16 autocast over f32 parameters on the card) on
     `mot_fixture` (`n_seq` sequences of `n_frames` frames), converted by
     `convert_mot_to_yolo` (the last sequence is also the val split), with
-    `TRAINER_KW`: augmentation, 5-frame clips, batch 1, 2 epochs of 3
-    steps, accumulate 2, validation every epoch. Checks finite losses, 60
+    `TRAINER_KW`: augmentation, 5-frame clips, batch 1, 2 epochs of 2
+    steps, accumulate 3, validation every epoch. Checks finite losses, 60
     K1 and 30 K2 launches a step (remat), 6 K1, 1 greedy and no K2 a val
     frame, the run's files and the validator's keys. Measures, on the same
     instrumented run: the median step time through the trainer (epoch 0),
@@ -3283,8 +3544,10 @@ def phase_trainer(cfg="yolo_track", imgsz="1536x800", device=None,
                 # the profiled window: epoch 1's last clip, loaded and
                 # stepped
                 sync()
-                state["prof"] = profile(activities=[ProfilerActivity.CPU,
-                                                    ProfilerActivity.CUDA])
+                # device activity only: the window's busy time is all
+                # that is read, and the host side of a trainer step's
+                # trace took ~70 s to process
+                state["prof"] = profile(activities=[ProfilerActivity.CUDA])
                 state["prof"].__enter__()
                 state["t_prof"] = time.perf_counter()
             # the next clip's loading starts, unless the epoch ends here
@@ -3399,7 +3662,7 @@ def phase_trainer(cfg="yolo_track", imgsz="1536x800", device=None,
            "training_weights_not_ema": ema_apart,
            "resume": resume, "deterministic_runs": deterministic}
     emit("trainer", **rec)
-    check(len(steps) == TRAINER_EPOCHS * n_steps and n_steps == 3,
+    check(len(steps) == TRAINER_EPOCHS * n_steps and n_steps == n_seq,
           f"trainer: {len(steps)} logged steps, {n_steps} an epoch")
     check(all(math.isfinite(v) for v in losses),
           f"trainer: losses {losses}")
@@ -4486,6 +4749,7 @@ def phase_task(task, cfg="yolo_track", imgsz=TASK_IMGSZ, device=None,
 # ------------------------------------------------------------------ export
 
 EXPORT_IMGSZ, EXPORT_DYNAMIC_B, EXPORT_DYNAMIC_FRAMES = "1536x800", 4, 4
+EXPORT_FRAMES = 8
 HARNESS_IMGSZ = 640
 
 
@@ -4504,7 +4768,7 @@ class LoadedStep:
 
 
 def phase_export(cfg="yolo_track", imgsz=EXPORT_IMGSZ, dtype="bfloat16",
-                 device=None, n_frames=N_FRAMES,
+                 device=None, n_frames=EXPORT_FRAMES,
                  dynamic_b=EXPORT_DYNAMIC_B,
                  dynamic_frames=EXPORT_DYNAMIC_FRAMES,
                  harness_imgsz=HARNESS_IMGSZ, task_imgsz=TASK_IMGSZ,
@@ -5220,6 +5484,8 @@ def main() -> int:
     study_recs = phase_kernel_variants()
     study_launches = phase_study()
     slices = [phase_slice("1536x800"), phase_slice(640)]
+    formats = phase_formats(slices[0]["tracker"])
+    sources = phase_sources(slices[0]["tracker"])
     for rec in slices:
         phase_profile(rec["tracker"].model, rec["imgsz"], static_scene(1)[0])
         del rec["tracker"]
@@ -5275,6 +5541,10 @@ def main() -> int:
             "ms_deform_attn_fwd"],
         "launches_pt2_dynamic_b4": export["dynamic"]["launches"][
             "ms_deform_attn_fwd"],
+        "launches_formats_webp_predict": formats["predict"]["launches"][
+            "ms_deform_attn_fwd"],
+        "launches_sources_video_predict": sources["launches"][
+            "ms_deform_attn_fwd"],
         **{k: k1[k] for k in keys}, "library_ms": None}, {
         "name": "ms_deform_attn_bwd", "route": "cuda",
         "source": f"{csrc}/ms_deform_attn_bwd.cu",
@@ -5311,6 +5581,9 @@ def main() -> int:
         "launches_pt2_dynamic_b4": export["dynamic"]["launches"][
             "greedy_keep"],
         "launches_pt2_segment": export["segment"]["launches"]["greedy_keep"],
+        "launches_formats_webp_predict": formats["predict"]["launches"][
+            "greedy_keep"],
+        "launches_sources_video_predict": sources["launches"]["greedy_keep"],
         "launches_nas_predict": nas["predict"]["launches"]["greedy_keep"],
         "launches_nas_tta": nas["predict_tta"]["launches"]["greedy_keep"],
         "launches_nas_val": nas["val"]["launches"]["greedy_keep"],

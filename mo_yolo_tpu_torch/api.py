@@ -451,9 +451,10 @@ class MOTRTrack(_ModelFacade):
                 save_format: str = "jpg"
                 ) -> Union[Iterator[TrackResults], List[TrackResults]]:
         """Streaming tracking over image files (a folder, a glob, a `.txt`
-        list, a list of paths; PNG or JPEG), a `.npy` stack or uint8 HWC
-        frames. Returns a generator of TrackResults, one a frame (a list
-        with `stream=False`). `save_mot` writes MOT-challenge txt;
+        list, a list of paths), a video file (every `vid_stride`-th frame),
+        a URL stream, a webcam, `screen`, a `.npy` stack, PIL images or
+        uint8 HWC frames. Returns a generator of TrackResults, one a frame
+        (a list with `stream=False`). `save_mot` writes MOT-challenge txt;
         `classes` keeps those ids; `save` and `save_crop` write annotated
         frames (`save_format` jpg or png) and crops under `save_dir`;
         `show` shows frames where there is a display; `visualize` writes

@@ -1,15 +1,23 @@
 """Frame sources for streaming inference (the port's copies of
 `IMG_EXTS`, `list_images`, `load_image`, `ImageFolderSource`,
-`ArraySource`, `TensorSource` and `make_source` from
-`mo_yolo_tpu/data/loaders.py`).
+`ArraySource`, `TensorSource`, `VideoSource`, `StreamSource`,
+`ScreenshotSource` and `make_source` from `mo_yolo_tpu/data/loaders.py`).
 
-Images decode through the port's own decoders (`data/decode.py`: PNG
-and uncompressed BMP; `data/jpeg.py`: JPEG; `.npy` frames through numpy),
-not PIL. TIFF and WebP frames raise, naming the codec library they need.
-Video files, URL streams, webcams and screenshots raise: the JAX package
-reads them through an ffmpeg binary, a camera and a display, which the
-machine with the card does not have; PIL images are not taken either (no
-PIL there).
+Images decode through the port's own decoders, not PIL: PNG and BMP in
+`data/decode.py`, JPEG in `data/jpeg.py`, TIFF in `data/tiff.py`, WebP in
+`data/webp.py` (each C file built at first use), `.npy` frames through
+numpy; `load_image` picks the decoder by the file's first bytes. Video
+files, URL streams and webcams are read as the JAX package reads them,
+through `ffmpeg`/`ffprobe` binaries on `PATH` and an rgb24 rawvideo pipe;
+screenshots through the `mss` package; each raises RuntimeError where its
+tool is missing. PIL images are taken by duck typing (`.convert("RGB")`);
+the port never imports PIL.
+
+Tests: on the CPU, `tests/test_torch_port_sources.py` holds every source
+to the JAX package's through a stand-in ffmpeg (`tests/ffmpeg_stub.py`)
+and a stand-in `mss`, and `tests/test_torch_port_formats.py` holds
+`load_image` to the JAX one on every format; on the card, `chip_smoke.py`'s
+`formats` and `sources` phases.
 """
 
 from __future__ import annotations
@@ -25,9 +33,10 @@ import torch
 from mo_yolo_tpu_torch.data.decode import (BMP_MAGIC, JPEG_MAGIC, PNG_MAGIC,
                                            decode_bmp, decode_png)
 from mo_yolo_tpu_torch.data.jpeg import decode_jpeg
+from mo_yolo_tpu_torch.data.tiff import BIGTIFF_MAGICS, TIFF_MAGICS, decode_tiff
+from mo_yolo_tpu_torch.data.webp import decode_webp, is_webp
 
-# the JAX package's list, so that a folder lists the same files; PNG, JPEG
-# and BMP among them decode here
+# the JAX package's list, so that a folder lists the same files
 IMG_EXTS = {".bmp", ".jpeg", ".jpg", ".png", ".tif", ".tiff", ".webp"}
 VID_EXTS = {".asf", ".avi", ".gif", ".m4v", ".mkv", ".mov", ".mp4",
             ".mpeg", ".mpg", ".ts", ".webm", ".wmv"}
@@ -57,8 +66,9 @@ def list_images(source: Union[str, Path]) -> List[str]:
 
 
 def load_image(path: Union[str, Path]) -> np.ndarray:
-    """Decode one PNG, JPEG, BMP or `.npy` frame to HWC uint8 RGB. Other
-    formats raise; TIFF and WebP name the codec library they need."""
+    """Decode one PNG, JPEG, BMP, TIFF, WebP or `.npy` frame to HWC uint8
+    RGB, the decoder chosen by the file's first bytes; any other file
+    raises."""
     path = Path(path)
     if path.suffix.lower() == ".npy":
         frame = np.load(path)
@@ -69,24 +79,22 @@ def load_image(path: Union[str, Path]) -> np.ndarray:
     with open(path, "rb") as f:
         data = f.read()
     if data[:8] == PNG_MAGIC:
-        return decode_png(data)
-    if data[:2] == JPEG_MAGIC:
-        try:
-            return decode_jpeg(data)
-        except ValueError as e:
-            raise ValueError(f"{path}: {e}") from None
-    if data[:2] == BMP_MAGIC:
-        return decode_bmp(data)
-    for magic, kind, lib in ((b"II*\x00", "TIFF", "libtiff"),
-                             (b"MM\x00*", "TIFF", "libtiff"),
-                             (b"RIFF", "WebP", "libwebp")):
-        if data[:len(magic)] == magic and (kind != "WebP" or
-                                           data[8:12] == b"WEBP"):
-            raise ValueError(f"{path}: {kind} frames need the {lib} codec, "
-                             f"which the port does not have (no PIL or cv2 "
-                             f"on this path); convert them to PNG")
-    raise ValueError(f"{path}: only PNG, JPEG, BMP and .npy frames are "
-                     f"decoded (there is no PIL or cv2 on this path)")
+        decode = decode_png
+    elif data[:2] == JPEG_MAGIC:
+        decode = decode_jpeg
+    elif data[:2] == BMP_MAGIC:
+        decode = decode_bmp
+    elif data[:4] in TIFF_MAGICS + BIGTIFF_MAGICS:
+        decode = decode_tiff
+    elif is_webp(data):
+        decode = decode_webp
+    else:
+        raise ValueError(f"{path}: only PNG, JPEG, BMP, TIFF, WebP and .npy "
+                         f"frames are decoded")
+    try:
+        return decode(data)
+    except ValueError as e:
+        raise ValueError(f"{path}: {e}") from None
 
 
 class ImageFolderSource:
@@ -150,32 +158,210 @@ class TensorSource:
             yield f"tensor_{i:06d}", f
 
 
-def _not_here(source, what: str, needs: str):
-    return RuntimeError(f"{source!r}: {what} sources are not read by the "
-                        f"port: they need {needs}, which the machine with "
-                        f"the card does not have")
 
 
-def make_source(source) -> Union[ImageFolderSource, ArraySource,
-                                 TensorSource]:
-    """The frame source of `source`, dispatched as the JAX package's
-    `make_source` does: a directory, glob, `.txt` list or image file; a
-    `.npy` stack of frames; a list of paths; an ndarray stack or one
-    frame; a list of arrays; a torch tensor. A webcam index, a URL stream,
-    `screen` and a video file raise, naming what they need."""
+def _end(proc, timeout: float = 5.0) -> None:
+    """End an ffmpeg process whose frames are no longer read: close its
+    pipe (a real ffmpeg exits on the broken pipe), wait, and kill it if it
+    has not exited after `timeout` seconds, so that a closed source never
+    hangs on it or leaves it running."""
+    proc.stdout.close()
+    try:
+        proc.wait(timeout)
+    except Exception:
+        proc.kill()
+        proc.wait()
+
+
+def _probe(path: str, entries: str) -> dict:
+    import json
+    import subprocess
+    probe = subprocess.run(
+        ["ffprobe", "-v", "error", "-select_streams", "v:0",
+         "-show_entries", f"stream={entries}", "-of", "json", path],
+        capture_output=True, check=True)
+    return json.loads(probe.stdout)["streams"][0]
+
+
+def _read_frame(proc, h: int, w: int):
+    """The next uint8 [h, w, 3] frame of ffmpeg's pipe (a writable array),
+    or None where the stream ends."""
+    frame = np.empty((h, w, 3), np.uint8)
+    return frame if proc.stdout.readinto(frame.data.cast("B")) == \
+        frame.nbytes else None
+
+
+def _rawvideo(cmd: List[str], nbytes: int):
+    import subprocess
+    return subprocess.Popen(cmd + ["-f", "rawvideo", "-pix_fmt", "rgb24", "-"],
+                            stdout=subprocess.PIPE, bufsize=nbytes * 4)
+
+
+class VideoSource:
+    """The frames of a video file, decoded by an ffmpeg binary into an
+    rgb24 rawvideo pipe, as the JAX package's `VideoSource` reads them;
+    `vid_stride` keeps every k-th frame. Needs `ffmpeg` and `ffprobe` on
+    `PATH` (RuntimeError without them)."""
+
+    def __init__(self, path: str, vid_stride: int = 1):
+        import shutil
+        if shutil.which("ffmpeg") is None or shutil.which("ffprobe") is None:
+            raise RuntimeError("video sources need an ffmpeg/ffprobe binary")
+        self.path = str(path)
+        self.vid_stride = max(int(vid_stride), 1)
+        st = _probe(self.path, "width,height,nb_frames")
+        self.w, self.h = int(st["width"]), int(st["height"])
+        self.n_frames = int(st.get("nb_frames") or 0)
+
+    def __len__(self):
+        return (self.n_frames + self.vid_stride - 1) // self.vid_stride
+
+    def __iter__(self) -> Iterator[Tuple[str, np.ndarray]]:
+        nbytes = self.w * self.h * 3
+        proc = _rawvideo(["ffmpeg", "-v", "error", "-i", self.path], nbytes)
+        try:
+            i = 0
+            while (frame := _read_frame(proc, self.h, self.w)) is not None:
+                if i % self.vid_stride == 0:
+                    yield f"{self.path}#{i:06d}", frame
+                i += 1
+        finally:
+            _end(proc)
+
+
+class StreamSource:
+    """A live stream (RTSP, RTMP, HTTP, TCP, UDP URL) or a webcam (an
+    integer index, /dev/video<N> through ffmpeg's v4l2 demuxer at
+    `fps_probe`'s size), decoded by ffmpeg into an rgb24 pipe that a
+    reader thread drains. Only the latest frame is kept: a slow consumer
+    drops frames rather than lagging. Iteration ends with the stream,
+    after `max_frames`, or on `stop()`; ffmpeg is then ended."""
+
+    def __init__(self, source: Union[str, int], max_frames: int = 0,
+                 fps_probe: Tuple[int, int] = (640, 480)):
+        import shutil
+        self.src = str(source)
+        self.max_frames = max_frames
+        self._stop = False
+        if self.src.isdigit():
+            self._cmd = ["ffmpeg", "-v", "error", "-f", "v4l2",
+                         "-i", f"/dev/video{source}"]
+            self.w, self.h = fps_probe
+        else:
+            if shutil.which("ffprobe") is None:
+                raise RuntimeError("stream sources need ffmpeg/ffprobe")
+            st = _probe(self.src, "width,height")
+            self.w, self.h = int(st["width"]), int(st["height"])
+            self._cmd = ["ffmpeg", "-v", "error", "-i", self.src]
+        if shutil.which("ffmpeg") is None:
+            raise RuntimeError("stream sources need an ffmpeg binary")
+
+    def stop(self):
+        self._stop = True
+
+    def __iter__(self) -> Iterator[Tuple[str, np.ndarray]]:
+        import queue
+        import threading
+
+        nbytes = self.w * self.h * 3
+        proc = _rawvideo(self._cmd, nbytes)
+        latest: "queue.Queue" = queue.Queue(maxsize=1)
+
+        def reader():
+            while not self._stop:
+                frame = _read_frame(proc, self.h, self.w)
+                if frame is None:
+                    break
+                try:               # drop the stale frame, keep the new one
+                    latest.get_nowait()
+                except queue.Empty:
+                    pass
+                latest.put(frame)
+            while True:            # sentinel: end of stream
+                try:
+                    latest.put(None, timeout=0.05)
+                    break
+                except queue.Full:
+                    if self._stop:     # nobody reads any more
+                        break
+
+        t = threading.Thread(target=reader, daemon=True)
+        t.start()
+        i = 0
+        try:
+            while not self._stop:
+                frame = latest.get()
+                if frame is None:
+                    break
+                yield f"{self.src}#{i:06d}", frame
+                i += 1
+                if self.max_frames and i >= self.max_frames:
+                    break
+        finally:
+            # ffmpeg first: the reader's blocked read then returns
+            self._stop = True
+            proc.terminate()
+            t.join()
+            _end(proc)
+
+
+class ScreenshotSource:
+    """Screen captures through the `mss` package (imported when the source
+    is made; RuntimeError without it). `spec` is `screen [monitor [left top
+    width height]]`, the region relative to the monitor."""
+
+    def __init__(self, spec: str = "screen", max_frames: int = 0):
+        try:
+            import mss  # noqa: F401
+        except ImportError as e:
+            raise RuntimeError(
+                "screenshot sources need the `mss` package") from e
+        parts = str(spec).split()
+        self.monitor = int(parts[1]) if len(parts) > 1 else 0
+        self.region = [int(p) for p in parts[2:6]] if len(parts) >= 6 else None
+        self.max_frames = max_frames
+
+    def __iter__(self) -> Iterator[Tuple[str, np.ndarray]]:
+        import mss
+
+        with mss.mss() as sct:
+            mon = sct.monitors[self.monitor]
+            if self.region:
+                left, top, w, h = self.region
+                mon = {"left": mon["left"] + left, "top": mon["top"] + top,
+                       "width": w, "height": h}
+            i = 0
+            while not self.max_frames or i < self.max_frames:
+                shot = np.asarray(sct.grab(mon))[..., :3][..., ::-1]  # BGRA
+                yield f"screen_{i:06d}", np.ascontiguousarray(shot)
+                i += 1
+
+
+def is_pil_image(x) -> bool:
+    """Whether `x` is a PIL image, told without importing PIL."""
+    return type(x).__module__.startswith("PIL") and hasattr(x, "convert")
+
+
+def make_source(source, vid_stride: int = 1):
+    """The frame source of `source`, dispatched in the JAX package's
+    order: a webcam index (int or digit string), `screen ...`, a URL
+    stream, a video file (every `vid_stride`-th frame), else a directory,
+    glob, `.txt` list or image file (a `.npy` stack of frames too); a
+    torch tensor; an ndarray stack or one frame; a PIL image; a list of
+    arrays, of PIL images or of paths."""
     if isinstance(source, int):
-        raise _not_here(source, "webcam", "a camera and an ffmpeg binary")
+        return StreamSource(source)
     if isinstance(source, (str, Path)):
         s = str(source)
         if s.isdigit():
-            raise _not_here(source, "webcam", "a camera and an ffmpeg binary")
+            return StreamSource(s)
         if s == "screen" or s.startswith("screen "):
-            raise _not_here(source, "screenshot", "a display")
+            return ScreenshotSource(s)
         if s.lower().startswith(STREAM_PREFIXES):
-            raise _not_here(source, "URL stream", "an ffmpeg binary")
+            return StreamSource(s)
         suffix = Path(s).suffix.lower()
         if suffix in VID_EXTS:
-            raise _not_here(source, "video", "an ffmpeg binary")
+            return VideoSource(s, vid_stride=vid_stride)
         if suffix == ".npy":
             return ArraySource(np.load(s))
         return ImageFolderSource(source)
@@ -183,12 +369,14 @@ def make_source(source) -> Union[ImageFolderSource, ArraySource,
         return TensorSource(source)
     if isinstance(source, np.ndarray):
         return ArraySource(source if source.ndim == 4 else source[None])
-    if type(source).__module__.startswith("PIL"):
-        raise TypeError("PIL images are not taken (there is no PIL on the "
-                        "machine with the card): pass uint8 arrays")
+    if is_pil_image(source):
+        return ArraySource([np.asarray(source.convert("RGB"))])
     if isinstance(source, (list, tuple)) and len(source):
         if isinstance(source[0], np.ndarray):
             return ArraySource(source)
+        if is_pil_image(source[0]):
+            return ArraySource([np.asarray(im.convert("RGB"))
+                                for im in source])
         if isinstance(source[0], (str, Path)):
             return ImageFolderSource(source)
     raise TypeError(f"unsupported source type: {type(source)}")

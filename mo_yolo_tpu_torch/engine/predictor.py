@@ -1,14 +1,20 @@
 """Streaming tracking inference engine (counterpart of
 `mo_yolo_tpu/engine/predictor.py`).
 
-A source is uint8 HWC numpy frames, or image files (a folder, a glob, a
-`.txt` list, a list of paths) that `data/loaders.py` decodes, or a `.npy`
-stack of frames. Each frame is copied to the device, letterboxed there
-(scale-fill, uint8) and run through `stream_step`; its packed result is
-fetched one frame later, so the host postprocesses frame t while the
-device runs frame t+1, and `stream_step` brings nothing to the host.
-Results can be written as MOT txt, annotated frames and crops
-(`engine/results.py`).
+A source is anything `data/loaders.make_source` takes: uint8 HWC numpy
+frames, image files (a folder, a glob, a `.txt` list, a list of paths;
+PNG, JPEG, BMP, TIFF, WebP), a `.npy` stack of frames, a video file
+(every `vid_stride`-th frame), a URL stream or webcam (through an ffmpeg
+binary), `screen` (through `mss`), PIL images or a tensor. Each frame is
+copied to the device, letterboxed there (scale-fill, uint8) and run
+through `stream_step`; its packed result is fetched one frame later, so
+the host postprocesses frame t while the device runs frame t+1, and
+`stream_step` brings nothing to the host. Results can be written as MOT
+txt, annotated frames and crops (`engine/results.py`).
+
+Tests: `tests/test_torch_port_stream.py` and `test_torch_port_sources.py`
+(a video at `vid_stride=2`) against the JAX `TrackPredictor` on the CPU;
+`chip_smoke.py`'s slice, formats and sources phases on the card.
 """
 
 from __future__ import annotations
@@ -25,7 +31,8 @@ import torch
 
 from mo_yolo_tpu_torch.data.encode import check_writable
 from mo_yolo_tpu_torch.data.letterbox import boxes_to_original, to_hw
-from mo_yolo_tpu_torch.data.loaders import (ImageFolderSource, load_image,
+from mo_yolo_tpu_torch.data.loaders import (ImageFolderSource,
+                                           is_pil_image, load_image,
                                            make_source)
 from mo_yolo_tpu_torch.engine.results import TrackResults
 from mo_yolo_tpu_torch.metrics.mot import write_mot_txt
@@ -57,15 +64,19 @@ def _prefetched(files: List[str], workers: int
                 fut.cancel()
 
 
-def _frames(source, workers: int = 1) -> Iterator[Tuple[str, np.ndarray]]:
+def _frames(source, workers: int = 1, vid_stride: int = 1
+            ) -> Iterator[Tuple[str, np.ndarray]]:
     """(path, frame) pairs of whatever `make_source` takes (image files, a
-    `.npy` stack, arrays, a tensor); any other iterable of frames (a
-    generator, a camera loop) is read lazily, one frame at a time. Image
+    `.npy` stack, a video file thinned by `vid_stride`, a stream, a webcam,
+    `screen`, arrays, PIL images, a tensor); any other iterable of frames
+    (a generator, a camera loop) is read lazily, one frame at a time. Image
     files decode on `workers` threads."""
     if isinstance(source, (str, Path, np.ndarray, torch.Tensor, int)) or \
+            is_pil_image(source) or \
             (isinstance(source, (list, tuple)) and source and
-             isinstance(source[0], (str, Path, np.ndarray))):
-        source = make_source(source)
+             (isinstance(source[0], (str, Path, np.ndarray)) or
+              is_pil_image(source[0]))):
+        source = make_source(source, vid_stride=vid_stride)
         if isinstance(source, ImageFolderSource) and workers > 1:
             source = _prefetched(source.files, workers)
     else:
@@ -90,12 +101,11 @@ def frame_stem(path: str, n: int) -> str:
 class TrackPredictor:
     """`stream(source, ...)` yields a TrackResults a frame. `names` maps
     class ids to the labels' names; `classes` keeps those ids;
-    `vid_stride` is kept for the JAX surface (it thins video files, which
-    the port does not read); `visualize` writes each frame's feature-map
-    grids; `workers` threads decode image files ahead; `callbacks` get
-    `on_predict_start` at the first frame asked for, `on_predict_batch_end`
-    after each frame and `on_predict_end` when the stream ends or is
-    closed. `speed` holds the last frame's host ms: decode, dispatch of
+    `vid_stride` keeps every k-th frame of a video file; `visualize`
+    writes each frame's feature-map grids; `workers` threads decode image
+    files ahead; `callbacks` get `on_predict_start` at the first frame
+    asked for, `on_predict_batch_end` after each frame and
+    `on_predict_end` when the stream ends or is closed. `speed` holds the last frame's host ms: decode, dispatch of
     the step, postprocess."""
 
     def __init__(self, model, imgsz=640, conf: float = 0.5, classes=None,
@@ -176,7 +186,8 @@ class TrackPredictor:
         pending = None       # (path, meta, img, fetch) one frame behind
         t1 = time.perf_counter()
         try:
-            for i, (path, img) in enumerate(_frames(source, self.workers)):
+            for i, (path, img) in enumerate(
+                    _frames(source, self.workers, self.vid_stride)):
                 t0, t1 = t1, time.perf_counter()
                 meta = device_preprocess_meta(img.shape[:2],
                                               (self.in_h, self.in_w))

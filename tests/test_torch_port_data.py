@@ -7,8 +7,9 @@ CPU.
   `.convert("RGB")`: PNGs PIL wrote (RGB, RGBA, L,
   LA, P at 8 and 4 bits, 1-bit), PNGs this file encodes with each row
   filter, and JPEGs PIL wrote, exactly (the system libjpeg and PIL's
-  give the same pixels). 16-bit and interlaced PNGs raise, and a JPEG
-  raises naming libjpeg where it is hidden.
+  give the same pixels); 16-bit and interlaced PNGs too
+  (`tests/test_torch_port_formats.py` covers every PNG format), and JPEGs
+  decode where libjpeg is hidden.
 - The host letterbox against the JAX package's (PIL BILINEAR): equal,
   byte for byte, at the input size, on downscales, upscales and
   scale-fill (the resize is PIL's arithmetic in C,
@@ -141,15 +142,24 @@ def test_jpeg_written_by_pil_decodes_as_pil_does(quality, subsampling,
 
 @pytest.mark.parametrize("what", ["16bit", "interlaced"])
 def test_png_the_decoder_does_not_take_raises(what, tmp_path):
+    """16-bit and Adam7-interlaced PNGs, once refused, decode to PIL's
+    pixels (16-bit grey opens as I;16, whose RGB conversion clips to 255);
+    interlaced data too short for its passes raises where PIL raises."""
     from mo_yolo_tpu_torch.data.loaders import load_image
+    from tests.test_torch_port_formats import _png
     path = tmp_path / "frame.png"
     if what == "16bit":
-        Image.fromarray((_frame()[..., 0].astype(np.uint16) * 257)).save(path)
+        Image.fromarray((_frame()[..., 0].astype(np.uint16) * 129)).save(path)
     else:
+        rng = np.random.default_rng(0)
+        path.write_bytes(_png(_frame(8, 8), 8, 2, 1, rng))
+    np.testing.assert_array_equal(load_image(path), _pil_rgb(path))
+    if what == "interlaced":     # rows of a plain image, flagged interlaced
         path.write_bytes(encode_png(_frame(8, 8), (0,), interlace=1))
-    with pytest.raises(ValueError, match="16-bit" if what == "16bit"
-                       else "interlaced"):
-        load_image(path)
+        with pytest.raises(OSError):
+            _pil_rgb(path)
+        with pytest.raises(ValueError, match="PNG"):
+            load_image(path)
 
 
 def test_jpeg_decodes_without_libjpeg(tmp_path, monkeypatch):
@@ -171,8 +181,8 @@ def test_jpeg_decodes_without_libjpeg(tmp_path, monkeypatch):
 def test_decoder_builds_once_with_the_host_compiler(tmp_path):
     """The C file is built into build/host_libs under a name keyed by its
     source and flags, and loaded once a process; `.npy` frames load
-    through numpy, a BMP frame decodes, and a TIFF one raises, naming the
-    codec it needs."""
+    through numpy, and BMP and TIFF frames decode to PIL's pixels (TIFF
+    through `data/tiff.py`, whose C is built the same way)."""
     from mo_yolo_tpu_torch.data import decode
     from mo_yolo_tpu_torch.data.loaders import load_image
     from mo_yolo_tpu_torch.utils import cuda_build
@@ -188,8 +198,12 @@ def test_decoder_builds_once_with_the_host_compiler(tmp_path):
     Image.fromarray(a).save(tmp_path / "frame.bmp")
     np.testing.assert_array_equal(load_image(tmp_path / "frame.bmp"), a)
     Image.fromarray(a).save(tmp_path / "frame.tif")
-    with pytest.raises(ValueError, match="TIFF frames need the libtiff"):
-        load_image(tmp_path / "frame.tif")
+    np.testing.assert_array_equal(load_image(tmp_path / "frame.tif"), a)
+    Image.fromarray(a).save(tmp_path / "lzw.tif", compression="tiff_lzw")
+    np.testing.assert_array_equal(load_image(tmp_path / "lzw.tif"), a)
+    from mo_yolo_tpu_torch.data import tiff
+    assert any(cuda_build.HOST_BUILD_DIR.glob("libtiff-*.so"))
+    assert cuda_build.load_c(tiff.SRC) is cuda_build.load_c(tiff.SRC)
 
 
 # ------------------------------------------------------------- letterbox

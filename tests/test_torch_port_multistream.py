@@ -162,10 +162,13 @@ def test_multistream_validator_matches_track_validator(pair, tmp_path):
         MultiStreamValidator(pm, streams=0)
 
 
-def test_make_source_dispatch_and_what_it_refuses(tmp_path):
+def test_make_source_dispatch_and_what_it_refuses(tmp_path, monkeypatch):
     """`make_source` dispatches as the JAX package's does; a tensor's
-    frames become HWC uint8; what needs ffmpeg, a camera, a display or PIL
-    raises, naming it."""
+    frames become HWC uint8, a PIL image's its RGB conversion; a webcam, a
+    URL stream, `screen` and a video file go to their sources, which raise
+    naming the tool they need where it is missing."""
+    import sys
+
     from PIL import Image
 
     from mo_yolo_tpu_torch.data.loaders import (ArraySource,
@@ -198,13 +201,16 @@ def test_make_source_dispatch_and_what_it_refuses(tmp_path):
     assert np.abs(img.astype(int) - frames[0]).max() <= 1
     gray = TensorSource(torch.zeros(1, 1, 8, 8))
     assert gray.frames.shape == (1, 8, 8, 3)
-    for bad, needs in ((0, "camera"), ("1", "camera"),
+    pil = make_source(Image.fromarray(frames[0]).convert("L"))
+    assert isinstance(pil, ArraySource)
+    assert next(iter(pil))[1].shape == (32, 32, 3)
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setitem(sys.modules, "mss", None)
+    for bad, needs in ((0, "ffmpeg"), ("1", "ffmpeg"),
                        ("rtsp://host/cam", "ffmpeg"),
-                       ("clip.mp4", "ffmpeg"), ("screen", "display")):
+                       ("clip.mp4", "ffmpeg"), ("screen", "mss")):
         with pytest.raises(RuntimeError, match=needs):
             make_source(bad)
-    with pytest.raises(TypeError, match="PIL"):
-        make_source(Image.fromarray(frames[0]))
     with pytest.raises(TypeError):
         make_source(3.5)
     with pytest.raises(ValueError):

@@ -386,16 +386,22 @@ def test_decode_bmp_matches_pil(tmp_path, w, bits, top_down, bitfields):
 
 
 def test_other_bmp_and_webp_raise(tmp_path):
+    """Palette BMPs and WebP frames decode to the JAX package's pixels
+    (PIL's); a WebP whose chunks are cut short raises, as PIL refuses it."""
     from PIL import Image
 
+    from mo_yolo_tpu.data.loaders import load_image as jax_load
     from mo_yolo_tpu_torch.data.loaders import load_image
-    img = np.zeros((4, 4, 3), np.uint8)
+    img = np.random.default_rng(1).integers(0, 256, (6, 7, 3), np.uint8)
     Image.fromarray(img).convert("P").save(tmp_path / "pal.bmp")
-    with pytest.raises(ValueError, match="only uncompressed 24- and 32-bit"):
-        load_image(tmp_path / "pal.bmp")
-    (tmp_path / "f.webp").write_bytes(b"RIFF\0\0\0\0WEBPVP8 ")
-    with pytest.raises(ValueError, match="WebP frames need the libwebp"):
-        load_image(tmp_path / "f.webp")
+    Image.fromarray(img).save(tmp_path / "f.webp", quality=80)
+    Image.fromarray(img).save(tmp_path / "l.webp", lossless=True)
+    for name in ("pal.bmp", "f.webp", "l.webp"):
+        np.testing.assert_array_equal(load_image(tmp_path / name),
+                                      jax_load(str(tmp_path / name)))
+    (tmp_path / "bad.webp").write_bytes(b"RIFF\0\0\0\0WEBPVP8 ")
+    with pytest.raises(ValueError, match="WebP"):
+        load_image(tmp_path / "bad.webp")
 
 
 # --------------------------------------------------------------- metrics
