@@ -105,7 +105,7 @@ Phases, each printed as one JSON line:
    every row's id, valid flag and class equal, boxes within 1e-3;
    val: evaluation through `MOTRTrack(...).val` at full `yolo_track` width,
    1536x800, bf16, on a synthetic MOT-layout fixture that the script
-   writes itself (2 sequences x 24 PNG frames at 1920x1080, each row
+   writes itself (2 sequences x 12 PNG frames at 1920x1080, each row
    filter type in turn) and converts with the port's
    `convert_mot_to_yolo`: every decoded frame equal to the array written,
    every metric finite and in range, 6 K1 and 1 greedy launches a frame,
@@ -189,7 +189,7 @@ Phases, each printed as one JSON line:
 17. export: the serialized step (`MOTRTrack.export(fmt="pt2")`, K1 and
    the greedy kernel as registered ops, loaded by `AutoBackend`) at full
    `yolo_track` width, 1536x800 bf16: the export's and load's seconds,
-   the `.pt2`'s MB, the program's op nodes (6 K1, 1 greedy), 8 frames
+   the `.pt2`'s MB, the program's op nodes (6 K1, 1 greedy), 6 frames
    through the eager step and the loaded program (equal bit for bit,
    state too; 6 K1 and 1 greedy launches a frame), both through the
    slice phase's `stream_graph` (no host sync, frames/s, a CUDA graph's
@@ -2341,25 +2341,32 @@ def phase_train_in_context(imgsz=320, T=2, device=None, loss_rtol=1e-4,
 
 # --------------------------------------------------------------------- val
 
-# the evaluation fixture: 2 sequences of 24 frames at 1920x1080 in the
+# the evaluation fixture: 2 sequences of 12 frames at 1920x1080 in the
 # MOT-challenge layout, 12 moving boxes each; the stream_step of this
 # frame of the loop runs with every host sync an error
 VAL_SEQS, VAL_FRAMES, VAL_HW, VAL_OBJECTS, VAL_SYNC_FRAME = \
-    2, 24, (1080, 1920), 12, 5
+    2, 12, (1080, 1920), 12, 5
 PERCENT_KEYS = ("HOTA", "DetA", "AssA", "LocA", "OWTA", "IDF1", "IDP", "IDR",
                 "mAP50", "mAP50-95", "precision", "recall")
 
 
 def phase_host_tools():
     """What the host C build finds: a compiler, which the frame decoders
-    (PNG unfilter, the port's JPEG codec) and the host resize need; they
-    link nothing else but libm and libpthread."""
+    (PNG unfilter, the port's JPEG codec, TIFF's LZW, PackBits and CCITT)
+    and the host resize need; they link nothing else but libm and
+    libpthread. And whether Python's `lzma` imports, which LZMA TIFFs
+    need (`check`ed in the formats phase)."""
     from mo_yolo_tpu_torch.utils import cuda_build
     try:
         cc = cuda_build._cc()
     except RuntimeError:
         cc = None
-    rec = {"cc": cc}
+    try:        # the LZMA TIFF path runs Python's lzma (liblzma)
+        import lzma
+        lzma_ok = lzma.is_check_supported(lzma.CHECK_NONE)
+    except ImportError:
+        lzma_ok = False
+    rec = {"cc": cc, "lzma_imports": lzma_ok}
     emit("host_tools", **rec)
     check(cc is not None, "no host C compiler: the frame decoders cannot be "
           "built")
@@ -2576,11 +2583,30 @@ def phase_jpeg(hw=VAL_HW, iters=5, threads=JPEG_THREADS):
 
 
 # the formats phase: the TIFF and WebP fixtures (tests/data/{tiff,webp},
-# each with the SHA-1 of PIL's decode); the 1080p files it times; the
-# WebP frames `MOTRTrack.predict` reads
+# each with the SHA-1 of PIL's decode); the 1080p files it times, WebP,
+# CMYK and arithmetic-coded JPEG, Group 4 (fixtures) and the TIFFs
+# `format_timed_files` writes at run time (held to FORMAT_DIGESTS, PIL's
+# decodes, which tests/test_torch_port_codecs.py checks); the frames
+# `MOTRTrack.predict` reads, these in turn
 FORMAT_FIXTURES = ("tiff", "webp")
 FORMAT_TIMED = ("scene_1080p_q90.webp", "scene_1080p_lossless.webp")
+FORMAT_TIMED_FIXTURES = (("jpeg", "cmyk_1080p.jpg"),
+                         ("jpeg", "arith_progressive_1080p.jpg"),
+                         ("tiff", "g4_1080p.tif"))
+FORMAT_DIGESTS = {
+    "jpeg_ycbcr_1080p.tif": "c669e540d2814dd45b35196265094735bb7af91e",
+    "rgb16_deflate_pred2_1080p.tif": "b9190fb739e10316a21a1e0c513072069c8633c8"}
 FORMAT_FRAMES = 12
+
+
+def format_timed_files(tiff_fixtures, encode_jpeg):
+    """name -> bytes of the 1080p TIFFs the formats phase writes: YCbCr
+    JPEG strips (whole JFIF streams from `encode_jpeg` at quality 75) and
+    16-bit RGB as Deflate with the predictor (`tests/data/tiff/
+    make_fixtures.py`, numpy only)."""
+    return {"jpeg_ycbcr_1080p.tif": tiff_fixtures.jpeg_tiff_1080p(
+                encode_jpeg),
+            "rgb16_deflate_pred2_1080p.tif": tiff_fixtures.tiff16_1080p()}
 # the sources phase: a clip of SOURCE_FRAMES synthetic 1080p frames read
 # every SOURCE_STRIDE-th; a stream read for STREAM_FRAMES frames
 SOURCE_FRAMES, SOURCE_STRIDE, STREAM_FRAMES = 24, 2, 4
@@ -2625,41 +2651,58 @@ def phase_formats(tracker=None, iters=5, threads=JPEG_THREADS,
     """The port's TIFF and WebP decoders (`data/tiff.py`, `data/webp.py`,
     host C, no libtiff or libwebp) on the card's host: `load_image` of
     every fixture of `tests/data/{tiff,webp}` against the SHA-1 of PIL's
-    decode in their manifests (TIFF: each compression, strips, tiles,
-    planar, the photometric interpretations, both byte orders, the
-    predictor, fill order 2, orientations; WebP: lossy, lossless, alpha,
-    an animation's first frame at an offset, VP8X metadata); then the ms to
-    decode the 1080p lossy and lossless WebP fixtures and a 1080p Deflate
-    TIFF with the predictor (one call, best and median of `iters`, and a
-    frame with `threads` threads at once). With `tracker`, its `predict`
-    over a folder of `n_predict` WebP frames (the two 1080p fixtures in
-    turn): every frame decoded to its digest, frames/s, and 6 K1 and 1
-    greedy launch a frame."""
+    decode in their manifests (TIFF: each compression, JPEG and CCITT
+    included, strips, tiles, planar, the photometric interpretations, CMYK,
+    16- and 32-bit and float samples, both predictors, BigTIFF, both byte
+    orders, fill order 2, orientations; WebP: lossy, lossless, alpha, an
+    animation's first frame at an offset, VP8X metadata); then the ms to
+    decode each 1080p file: the lossy and lossless WebP fixtures, a Deflate
+    TIFF with the predictor, the CMYK and the arithmetic-coded progressive
+    JPEG fixtures, the Group 4 fixture, and the YCbCr JPEG and 16-bit
+    Deflate TIFFs `format_timed_files` writes (one call, best and median of
+    `iters`, and a frame with `threads` threads at once), each held to
+    PIL's digest. With `tracker`, its `predict` over a folder of
+    `n_predict` frames, these 1080p files in turn (but the Deflate TIFF):
+    every frame decoded to its digest, frames/s, and 6 K1 and 1 greedy
+    launch a frame."""
     import hashlib
+    import lzma
     import shutil
     import tempfile
     from concurrent.futures import ThreadPoolExecutor
 
     import torch
 
+    from mo_yolo_tpu_torch.data.jpeg import decode_jpeg, encode_jpeg
     from mo_yolo_tpu_torch.data.loaders import load_image
     from mo_yolo_tpu_torch.data.tiff import decode_tiff
     from mo_yolo_tpu_torch.data.webp import decode_webp
+    check(lzma.is_check_supported(lzma.CHECK_NONE),
+          "formats: Python's lzma cannot read LZMA TIFFs here")
     manifests, decoded = {}, {}
-    for kind in FORMAT_FIXTURES:
+    for kind in FORMAT_FIXTURES + ("jpeg",):
         folder = ROOT / "tests" / "data" / kind
         manifests[kind] = json.loads((folder / "manifest.json").read_text())
+        if kind == "jpeg":                  # decoded in the jpeg phase
+            continue
         for name, want in manifests[kind].items():
             img = load_image(folder / name)
             decoded[name] = list(img.shape) == want["shape"] and hashlib.sha1(
                 img.tobytes()).hexdigest() == want["sha1"]
     webp_dir = ROOT / "tests" / "data" / "webp"
-    timed = [(name, (webp_dir / name).read_bytes(), decode_webp)
-             for name in FORMAT_TIMED]
-    timed.append(("tiff_1080p_deflate_predictor.tif",
-                  _fixture_module("tiff").tiff_1080p(), decode_tiff))
+    files = {name: (webp_dir / name).read_bytes() for name in FORMAT_TIMED}
+    files["tiff_1080p_deflate_predictor.tif"] = \
+        _fixture_module("tiff").tiff_1080p()
+    digests = {name: manifests["webp"][name]["sha1"] for name in FORMAT_TIMED}
+    for kind, name in FORMAT_TIMED_FIXTURES:
+        files[name] = (ROOT / "tests" / "data" / kind / name).read_bytes()
+        digests[name] = manifests[kind][name]["sha1"]
+    files.update(format_timed_files(_fixture_module("tiff"), encode_jpeg))
+    digests.update(FORMAT_DIGESTS)
+    decoders = {".webp": decode_webp, ".jpg": decode_jpeg, ".tif": decode_tiff}
     timing = {}
-    for name, data, fn in timed:
+    for name, data in files.items():
+        fn = decoders[Path(name).suffix]
         img, ms, med = _best_ms(lambda: fn(data), iters)
         n = threads * 4
         with ThreadPoolExecutor(threads) as pool:
@@ -2671,17 +2714,21 @@ def phase_formats(tracker=None, iters=5, threads=JPEG_THREADS,
                         "decode_ms": ms, "decode_ms_median": med,
                         "decode_ms_per_frame_threaded": threaded,
                         "threaded_equal": all(np.array_equal(o, img)
-                                              for o in outs)}
+                                              for o in outs),
+                        "equal": name not in digests or hashlib.sha1(
+                            img.tobytes()).hexdigest() == digests[name]}
     rec = {"fixtures": decoded, "timing": timing, "threads": threads,
            "cpu_count": os.cpu_count()}
     if tracker is not None:
         on_card = tracker.device.type == "cuda"
         n_layers = len(tracker.model.head.decoder.decoder.layers)
+        mix = [name for name in files if name in digests]
         (ROOT / "build").mkdir(exist_ok=True)
         with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
             for i in range(n_predict):
-                shutil.copy(webp_dir / FORMAT_TIMED[i % 2],
-                            Path(tmp) / f"{i:06d}.webp")
+                name = mix[i % len(mix)]
+                (Path(tmp) / f"{i:06d}{Path(name).suffix}").write_bytes(
+                    files[name])
             if on_card:
                 torch.cuda.synchronize()
             reset_counts()
@@ -2689,24 +2736,29 @@ def phase_formats(tracker=None, iters=5, threads=JPEG_THREADS,
             results = list(tracker.predict(tmp, conf=0.5))
             seconds = time.perf_counter() - t
             launches = counts()
-        sha = manifests["webp"]
         frames_equal = all(
             hashlib.sha1(r.orig_img.tobytes()).hexdigest() ==
-            sha[FORMAT_TIMED[i % 2]]["sha1"] for i, r in enumerate(results))
+            digests[mix[i % len(mix)]] for i, r in enumerate(results))
         rec["predict"] = {"imgsz": tracker.imgsz, "frames": len(results),
+                          "formats": [mix[i % len(mix)]
+                                      for i in range(n_predict)],
                           "seconds": seconds, "fps": len(results) / seconds,
                           "launches": launches,
                           "frames_equal": frames_equal,
                           "card": card_line() if on_card else None}
     emit("formats", **rec)
     bad = [k for k, v in decoded.items() if not v]
-    check(not bad and len(decoded) == sum(map(len, manifests.values())),
+    check(not bad and len(decoded) == sum(
+        len(manifests[k]) for k in FORMAT_FIXTURES),
           f"formats: the port's decode differs from PIL's on {bad}")
     check(all(t["threaded_equal"] for t in timing.values()),
           "formats: threaded decodes differ from the single call")
+    bad = [k for k, t in timing.items() if not t["equal"]]
+    check(not bad, f"formats: a timed 1080p decode differs from PIL's "
+          f"digest: {bad}")
     if tracker is not None:
-        check(frames_equal, "formats: a predicted WebP frame differs from "
-              "its fixture's digest")
+        check(frames_equal, "formats: a predicted frame differs from its "
+              "file's digest")
         _check_predict("formats", results, launches, n_layers, n_predict,
                        on_card)
     return rec
@@ -4749,7 +4801,7 @@ def phase_task(task, cfg="yolo_track", imgsz=TASK_IMGSZ, device=None,
 # ------------------------------------------------------------------ export
 
 EXPORT_IMGSZ, EXPORT_DYNAMIC_B, EXPORT_DYNAMIC_FRAMES = "1536x800", 4, 4
-EXPORT_FRAMES = 8
+EXPORT_FRAMES = 6
 HARNESS_IMGSZ = 640
 
 
@@ -5541,7 +5593,7 @@ def main() -> int:
             "ms_deform_attn_fwd"],
         "launches_pt2_dynamic_b4": export["dynamic"]["launches"][
             "ms_deform_attn_fwd"],
-        "launches_formats_webp_predict": formats["predict"]["launches"][
+        "launches_formats_mixed_predict": formats["predict"]["launches"][
             "ms_deform_attn_fwd"],
         "launches_sources_video_predict": sources["launches"][
             "ms_deform_attn_fwd"],
@@ -5581,7 +5633,7 @@ def main() -> int:
         "launches_pt2_dynamic_b4": export["dynamic"]["launches"][
             "greedy_keep"],
         "launches_pt2_segment": export["segment"]["launches"]["greedy_keep"],
-        "launches_formats_webp_predict": formats["predict"]["launches"][
+        "launches_formats_mixed_predict": formats["predict"]["launches"][
             "greedy_keep"],
         "launches_sources_video_predict": sources["launches"]["greedy_keep"],
         "launches_nas_predict": nas["predict"]["launches"]["greedy_keep"],

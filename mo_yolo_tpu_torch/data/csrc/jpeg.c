@@ -17,7 +17,10 @@
  *   factors; jdcolor.c's YCbCr->RGB tables.
  *   The colour space is guessed as jdapimin.c guesses it (JFIF, Adobe
  *   `transform`, or component ids 'R','G','B'); a grey image comes out
- *   repeated over three channels, as PIL's `.convert("RGB")` does.
+ *   repeated over three channels, as PIL's `.convert("RGB")` does. Four
+ *   components are CMYK, or YCCK where an Adobe marker's transform is not
+ *   0 (jdcolor.c ycck_cmyk_convert); PIL reads libjpeg's CMYK as CMYK;I
+ *   (inverted) and converts it with Convert.c cmyk2rgb.
  * - truncation: PIL hands libjpeg the file 64 KiB at a time and raises
  *   "image file is truncated" when libjpeg asks for bytes past the end
  *   before the last row is out. The decoder keeps the same window over
@@ -30,11 +33,23 @@
  *   jcdctmgr.c in its reciprocal form (16-bit DCTELEM, as libjpeg-turbo
  *   builds it with SIMD), the standard Huffman tables and the dummy blocks
  *   of jccoefct.c; the last byte padded with 1-bits.
+ * - arithmetic decoding: jdarith.c (the Q-coder's Table D.2, DC and AC
+ *   statistics bins, the DAC conditioning, restarts), sequential and
+ *   progressive. It cannot suspend: its data past what PIL has fed raises,
+ *   as libjpeg's JERR_CANT_SUSPEND does under PIL.
+ * - block smoothing: jdcoefct.c smoothing_ok and decompress_smooth_data
+ *   as libjpeg-turbo 2.1+ has them (a 5x5 block neighbourhood of DC
+ *   values, DC-only images too); a DNL marker after a known height is
+ *   skipped, as jdmarker.c skips it.
+ * - TIFF strips (jpeg_decode_tiff): the JPEGTables stream, then the strip,
+ *   every byte at hand and a fake EOI after, as libtiff's tif_jpeg.c.
  *
- * Not taken (each raises, naming it): arithmetic coding (SOF9-11, DAC),
- * lossless (SOF3), 12-bit samples, hierarchical files (SOF5-7, SOF13-15,
- * DHP, EXP), DNL, 4-component CMYK/YCCK, and progressive files whose scans
- * leave coefficients unrefined, which libjpeg block-smooths.
+ * Not taken (each raises, naming it): lossless (SOF3, SOF11), and what
+ * PIL refuses too: 12-bit samples, hierarchical files (SOF5-7, SOF13-15,
+ * DHP, EXP), a height of 0 left to DNL. The tests run on the CPU
+ * (tests/test_torch_port_jpeg.py, test_torch_port_codecs.py), against
+ * the JAX package's load_image; chip_smoke.py's jpeg phase holds the
+ * fixtures to PIL's digests on the card's host.
  *
  * Every call keeps its state in its own structures and reports an error
  * through the caller's buffer: threads may decode and encode at once.
@@ -168,6 +183,11 @@ typedef struct {
   int16_t qt[64];       /* latched quantization table, natural order */
   int latched;
   int coef_bits[64];    /* progressive: Al of the last scan, -1 for none */
+  /* lossless: each sample's difference (bw x bh of the MCU grid), the rows
+   * that start a restart interval, the predictor and point transform */
+  int32_t* diff;
+  uint8_t* first;
+  int pred, pt;
 } Comp;
 
 typedef struct {        /* the bit reader; pos is the next byte */
@@ -188,19 +208,29 @@ typedef struct {
   Huff dct[4], act[4];
   int restart_interval;
   int jfif, adobe, adobe_transform;
+  uint8_t dac_l[16], dac_u[16], dac_k[16];  /* DAC conditioning (jdmarker.c) */
   /* frame */
-  int have_sof, progressive, w, h, ncomp, max_h, max_v, mcux, mcuy;
+  int have_sof, progressive, arith, lossless, w, h, ncomp, max_h, max_v, mcux,
+      mcuy;
   Comp comp[MAX_COMPS];
   /* scan */
   int ns, sc[MAX_COMPS], Ss, Se, Ah, Al;
   int nblocks, member[MAX_BLOCKS];
   int scans, single_scan;
   int tail;             /* reading on after a single scan's last row */
+  int tiff;             /* a TIFF strip: every byte at hand, a fake EOI after */
+  int tables_only;      /* reading JPEGTables: EOI ends it */
+  int out_raw, out_ycc; /* TIFF: the components as they are, or YCbCr->RGB */
   /* entropy state (jdhuff.c / jdphuff.c) */
   Bits bs;              /* buf and bits; the position is d->pos */
   int unread_marker, insufficient, next_restart, restarts_to_go;
   int last_dc[MAX_COMPS];
   unsigned eobrun;
+  /* jdarith.c state: C and A registers, the bit counter, contexts, bins */
+  int64_t ar_c, ar_a;
+  int ar_ct, no_suspend;
+  int dc_context[MAX_COMPS];
+  uint8_t dc_stats[16][64], ac_stats[16][256], fixed_bin[4];
 } Dec;
 
 static void fail(Dec* d, const char* fmt, ...) {
@@ -218,9 +248,17 @@ static void truncated(Dec* d) {
 
 /* PIL's next block of the file, or the truncation error where there is
  * none */
+static void broken(Dec* d) {
+  fail(d, "broken data stream when reading image file: libjpeg's arithmetic "
+          "decoder cannot suspend, and its data runs past the %d bytes PIL "
+          "had fed it", (int)d->end);
+}
+
 static void feed(Dec* d) {
+  if (d->no_suspend && !d->tiff) broken(d);
   if (d->end >= d->len) {
     if (d->tail) longjmp(d->jmp, 2);
+    if (d->tiff) fail(d, "the JPEG data of a TIFF strip or tile ends early");
     truncated(d);
   }
   d->end = d->end + CHUNK < d->len ? d->end + CHUNK : d->len;
@@ -288,9 +326,9 @@ static void derive(Dec* d, const HuffSpec* s, int dc, Huff* t) {
         t->lookup[look++] = (uint16_t)((l << LOOKAHEAD) | s->vals[p]);
     }
   }
-  if (dc)
+  if (dc)                 /* lossless differences take 16 categories */
     for (int i = 0; i < n; ++i)
-      if (s->vals[i] > 15) fail(d, "bad Huffman table");
+      if (s->vals[i] > (d->lossless ? 16 : 15)) fail(d, "bad Huffman table");
 }
 
 /* jdhuff.c jpeg_fill_bit_buffer: 0 where libjpeg would suspend */
@@ -731,6 +769,295 @@ undo:
   return 0;
 }
 
+/* ------------------------------------------------- arithmetic decoding */
+
+/* jaricom.c jpeg_aritab: Table D.2 of the standard, (Qe << 16) |
+ * (Next_Index_MPS << 8) | (Switch_MPS << 7) | Next_Index_LPS; the last
+ * entry is the fixed 0.5 estimate */
+static const int32_t aritab[114] = {
+    0x5a1d0181, 0x2586020e, 0x11140310, 0x080b0412, 0x03d80514, 0x01da0617,
+    0x00e50719, 0x006f081c, 0x0036091e, 0x001a0a21, 0x000d0b23, 0x00060c09,
+    0x00030d0a, 0x00010d0c, 0x5a7f0f8f, 0x3f251024, 0x2cf21126, 0x207c1227,
+    0x17b91328, 0x1182142a, 0x0cef152b, 0x09a1162d, 0x072f172e, 0x055c1830,
+    0x04061931, 0x03031a33, 0x02401b34, 0x01b11c36, 0x01441d38, 0x00f51e39,
+    0x00b71f3b, 0x008a203c, 0x0068213e, 0x004e223f, 0x003b2320, 0x002c0921,
+    0x5ae125a5, 0x484c2640, 0x3a0d2741, 0x2ef12843, 0x261f2944, 0x1f332a45,
+    0x19a82b46, 0x15182c48, 0x11772d49, 0x0e742e4a, 0x0bfb2f4b, 0x09f8304d,
+    0x0861314e, 0x0706324f, 0x05cd3330, 0x04de3432, 0x040f3532, 0x03633633,
+    0x02d43734, 0x025c3835, 0x01f83936, 0x01a43a37, 0x01603b38, 0x01253c39,
+    0x00f63d3a, 0x00cb3e3b, 0x00ab3f3d, 0x008f203d, 0x5b1241c1, 0x4d044250,
+    0x412c4351, 0x37d84452, 0x2fe84553, 0x293c4654, 0x23794756, 0x1edf4857,
+    0x1aa94957, 0x174e4a48, 0x14244b48, 0x119c4c4a, 0x0f6b4d4a, 0x0d514e4b,
+    0x0bb64f4d, 0x0a40304d, 0x583251d0, 0x4d1c5258, 0x438e5359, 0x3bdd545a,
+    0x34ee555b, 0x2eae565c, 0x299a575d, 0x25164756, 0x557059d8, 0x4ca95a5f,
+    0x44d95b60, 0x3e225c61, 0x38245d63, 0x32b45e63, 0x2e17565d, 0x56a860df,
+    0x4f466165, 0x47e56266, 0x41cf6367, 0x3c3d6468, 0x375e5d63, 0x52316669,
+    0x4c0f676a, 0x4639686b, 0x415e6367, 0x56276ae9, 0x50e76b6c, 0x4b85676d,
+    0x55976d6e, 0x504f6b6f, 0x5a106fee, 0x55226d70, 0x59eb6ff0, 0x5a1d7171};
+
+/* jdarith.c get_byte: the arithmetic decoder cannot suspend (feed fails) */
+static int arith_byte(Dec* d) {
+  while (d->pos >= d->end) feed(d);
+  return d->data[d->pos++];
+}
+
+/* jdarith.c arith_decode: one binary decision with the statistics bin st;
+ * a marker in the data supplies zeros from there */
+static int arith_decode(Dec* d, uint8_t* st) {
+  while (d->ar_a < 0x8000L) {
+    if (--d->ar_ct < 0) {
+      int data = 0;
+      if (!d->unread_marker) {
+        data = arith_byte(d);
+        if (data == 0xFF) {
+          do data = arith_byte(d); while (data == 0xFF);
+          if (data == 0) {
+            data = 0xFF;
+          } else {
+            d->unread_marker = data;
+            data = 0;
+          }
+        }
+      }
+      d->ar_c = (d->ar_c << 8) | data;
+      if ((d->ar_ct += 8) < 0)
+        if (++d->ar_ct == 0) d->ar_a = 0x8000L;
+    }
+    d->ar_a <<= 1;
+  }
+  int sv = *st;
+  int64_t qe = aritab[sv & 0x7F];
+  const int nl = (int)(qe & 0xFF);
+  qe >>= 8;
+  const int nm = (int)(qe & 0xFF);
+  qe >>= 8;
+  int64_t temp = d->ar_a - qe;
+  d->ar_a = temp;
+  temp = (int64_t)((uint64_t)temp << (d->ar_ct & 63));
+  if (d->ar_c >= temp) {
+    d->ar_c -= temp;
+    if (d->ar_a < qe) {
+      d->ar_a = qe;
+      *st = (uint8_t)((sv & 0x80) ^ nm);
+    } else {
+      d->ar_a = qe;
+      *st = (uint8_t)((sv & 0x80) ^ nl);
+      sv ^= 0x80;
+    }
+  } else if (d->ar_a < 0x8000L) {
+    if (d->ar_a < qe) {
+      *st = (uint8_t)((sv & 0x80) ^ nl);
+      sv ^= 0x80;
+    } else {
+      *st = (uint8_t)((sv & 0x80) ^ nm);
+    }
+  }
+  return sv >> 7;
+}
+
+/* jdarith.c process_restart: the statistics of the scan's tables and the
+ * registers start again */
+static void arith_restart(Dec* d) {
+  read_restart_marker(d);
+  for (int i = 0; i < d->ns; ++i) {
+    const Comp* c = &d->comp[d->sc[i]];
+    if (!d->progressive || (d->Ss == 0 && d->Ah == 0)) {
+      memset(d->dc_stats[c->dc_tbl], 0, 64);
+      d->last_dc[i] = 0;
+      d->dc_context[i] = 0;
+    }
+    if (!d->progressive || d->Ss) memset(d->ac_stats[c->ac_tbl], 0, 256);
+  }
+  d->ar_c = 0;
+  d->ar_a = 0;
+  d->ar_ct = -16;
+  d->restarts_to_go = d->restart_interval;
+}
+
+static void arith_restart_check(Dec* d) {
+  if (d->restart_interval) {
+    if (d->restarts_to_go == 0) arith_restart(d);
+    d->restarts_to_go--;
+  }
+}
+
+/* Figures F.19-F.24 for one DC difference of block member ci: the value
+ * added to the prediction, or 0; -1 where libjpeg stops the scan */
+static int arith_dc_diff(Dec* d, int ci, int tbl, int* diff) {
+  uint8_t* st = d->dc_stats[tbl] + d->dc_context[ci];
+  *diff = 0;
+  if (arith_decode(d, st) == 0) {
+    d->dc_context[ci] = 0;
+    return 0;
+  }
+  const int sign = arith_decode(d, st + 1);
+  int m, v;
+  st += 2 + sign;
+  if ((m = arith_decode(d, st)) != 0) {
+    st = d->dc_stats[tbl] + 20;
+    while (arith_decode(d, st)) {
+      if ((m <<= 1) == 0x8000) {
+        d->ar_ct = -1;          /* JWRN_ARITH_BAD_CODE: magnitude overflow */
+        return -1;
+      }
+      st += 1;
+    }
+  }
+  if (m < (int)((1L << d->dac_l[tbl]) >> 1))
+    d->dc_context[ci] = 0;
+  else if (m > (int)((1L << d->dac_u[tbl]) >> 1))
+    d->dc_context[ci] = 12 + sign * 4;
+  else
+    d->dc_context[ci] = 4 + sign * 4;
+  v = m;
+  st += 14;
+  while (m >>= 1)
+    if (arith_decode(d, st)) v |= m;
+  v += 1;
+  *diff = sign ? -v : v;
+  return 0;
+}
+
+/* Figures F.21-F.24 for the AC value at zigzag k, st on its bins: the
+ * value, with 0 where libjpeg stops the scan (ct set to -1) */
+static int arith_ac_value(Dec* d, int tbl, int k, uint8_t* st) {
+  const int sign = arith_decode(d, d->fixed_bin);
+  int m, v;
+  st += 2;
+  if ((m = arith_decode(d, st)) != 0) {
+    if (arith_decode(d, st)) {
+      m <<= 1;
+      st = d->ac_stats[tbl] + (k <= d->dac_k[tbl] ? 189 : 217);
+      while (arith_decode(d, st)) {
+        if ((m <<= 1) == 0x8000) {
+          d->ar_ct = -1;
+          return 0;
+        }
+        st += 1;
+      }
+    }
+  }
+  v = m;
+  st += 14;
+  while (m >>= 1)
+    if (arith_decode(d, st)) v |= m;
+  v += 1;
+  return sign ? -v : v;
+}
+
+/* jdarith.c decode_mcu (sequential) */
+static int mcu_arith(Dec* d, int16_t** blocks) {
+  arith_restart_check(d);
+  if (d->ar_ct == -1) return 1;
+  for (int blkn = 0; blkn < d->nblocks; ++blkn) {
+    int16_t* block = blocks[blkn];
+    const int ci = d->member[blkn];
+    const Comp* c = &d->comp[d->sc[ci]];
+    int diff;
+    if (arith_dc_diff(d, ci, c->dc_tbl, &diff) < 0) return 1;
+    d->last_dc[ci] = (d->last_dc[ci] + diff) & 0xffff;
+    block[0] = (int16_t)d->last_dc[ci];
+    const int tbl = c->ac_tbl;
+    for (int k = 1; k <= 63; ++k) {
+      uint8_t* st = d->ac_stats[tbl] + 3 * (k - 1);
+      if (arith_decode(d, st)) break;               /* EOB */
+      while (arith_decode(d, st + 1) == 0) {
+        st += 3;
+        if (++k > 63) {
+          d->ar_ct = -1;                            /* spectral overflow */
+          return 1;
+        }
+      }
+      const int v = arith_ac_value(d, tbl, k, st);
+      if (d->ar_ct == -1) return 1;
+      block[natural[k]] = (int16_t)v;
+    }
+  }
+  return 1;
+}
+
+/* jdarith.c decode_mcu_DC_first */
+static int mcu_arith_dc_first(Dec* d, int16_t** blocks) {
+  arith_restart_check(d);
+  if (d->ar_ct == -1) return 1;
+  for (int blkn = 0; blkn < d->nblocks; ++blkn) {
+    const int ci = d->member[blkn];
+    int diff;
+    if (arith_dc_diff(d, ci, d->comp[d->sc[ci]].dc_tbl, &diff) < 0) return 1;
+    d->last_dc[ci] = (d->last_dc[ci] + diff) & 0xffff;
+    blocks[blkn][0] = (int16_t)((unsigned)d->last_dc[ci] << d->Al);
+  }
+  return 1;
+}
+
+/* jdarith.c decode_mcu_AC_first */
+static int mcu_arith_ac_first(Dec* d, int16_t** blocks) {
+  arith_restart_check(d);
+  if (d->ar_ct == -1) return 1;
+  int16_t* block = blocks[0];
+  const int tbl = d->comp[d->sc[0]].ac_tbl;
+  for (int k = d->Ss; k <= d->Se; ++k) {
+    uint8_t* st = d->ac_stats[tbl] + 3 * (k - 1);
+    if (arith_decode(d, st)) break;
+    while (arith_decode(d, st + 1) == 0) {
+      st += 3;
+      if (++k > d->Se) {
+        d->ar_ct = -1;
+        return 1;
+      }
+    }
+    const int v = arith_ac_value(d, tbl, k, st);
+    if (d->ar_ct == -1) return 1;
+    block[natural[k]] = (int16_t)((unsigned)v << d->Al);
+  }
+  return 1;
+}
+
+/* jdarith.c decode_mcu_DC_refine (no check of a stopped scan, as there) */
+static int mcu_arith_dc_refine(Dec* d, int16_t** blocks) {
+  arith_restart_check(d);
+  const int p1 = 1 << d->Al;
+  for (int blkn = 0; blkn < d->nblocks; ++blkn)
+    if (arith_decode(d, d->fixed_bin))
+      blocks[blkn][0] = (int16_t)(blocks[blkn][0] | p1);
+  return 1;
+}
+
+/* jdarith.c decode_mcu_AC_refine */
+static int mcu_arith_ac_refine(Dec* d, int16_t** blocks) {
+  arith_restart_check(d);
+  if (d->ar_ct == -1) return 1;
+  int16_t* block = blocks[0];
+  const int tbl = d->comp[d->sc[0]].ac_tbl;
+  const int p1 = 1 << d->Al;
+  const int m1 = (int)(~0u << d->Al);
+  int kex;
+  for (kex = d->Se; kex > 0; kex--)
+    if (block[natural[kex]]) break;
+  for (int k = d->Ss; k <= d->Se; ++k) {
+    uint8_t* st = d->ac_stats[tbl] + 3 * (k - 1);
+    if (k > kex && arith_decode(d, st)) break;
+    for (;;) {
+      int16_t* coef = block + natural[k];
+      if (*coef) {
+        if (arith_decode(d, st + 2))
+          *coef = (int16_t)(*coef < 0 ? *coef + m1 : *coef + p1);
+        break;
+      }
+      if (arith_decode(d, st + 1)) {
+        *coef = (int16_t)(arith_decode(d, d->fixed_bin) ? m1 : p1);
+        break;
+      }
+      st += 3;
+      if (++k > d->Se) {
+        d->ar_ct = -1;
+        return 1;
+      }
+    }
+  }
+  return 1;
+}
+
 /* ------------------------------------------------------------- markers */
 
 static void get_sof(Dec* d, int marker, int header_only) {
@@ -750,13 +1077,14 @@ static void get_sof(Dec* d, int marker, int header_only) {
   if (d->w > 65500 || d->h > 65500)
     fail(d, "the image is %d x %d pixels, over JPEG's 65500", d->w, d->h);
   if (length != 8 + 3 * d->ncomp) fail(d, "bogus SOF marker length");
-  if (d->ncomp == 4)
-    fail(d, "4-component (CMYK or YCCK) JPEG is not yet taken by the port's "
-            "JPEG decoder");
-  if (d->ncomp != 1 && d->ncomp != 3)
-    fail(d, "a JPEG of %d components: only 1 (grey) and 3 are taken",
-         d->ncomp);
-  d->progressive = marker == 0xC2;
+  if (d->ncomp != 1 && d->ncomp != 3 && d->ncomp != 4 &&
+      !(d->tiff && d->ncomp == 2))
+    fail(d, "a JPEG of %d components: only 1 (grey), 3 and 4 (CMYK or YCCK) "
+            "are taken", d->ncomp);
+  d->progressive = marker == 0xC2 || marker == 0xCA;
+  d->arith = marker == 0xC9 || marker == 0xCA;
+  d->lossless = marker == 0xC3;
+  const int unit = d->lossless ? 1 : 8;   /* a sample, or an 8x8 block */
   d->max_h = d->max_v = 1;
   for (int i = 0; i < d->ncomp; ++i) {
     Comp* c = &d->comp[i];
@@ -772,8 +1100,8 @@ static void get_sof(Dec* d, int marker, int header_only) {
     if (c->v > d->max_v) d->max_v = c->v;
     for (int k = 0; k < 64; ++k) c->coef_bits[k] = -1;
   }
-  d->mcux = (d->w + 8 * d->max_h - 1) / (8 * d->max_h);
-  d->mcuy = (d->h + 8 * d->max_v - 1) / (8 * d->max_v);
+  d->mcux = (d->w + unit * d->max_h - 1) / (unit * d->max_h);
+  d->mcuy = (d->h + unit * d->max_v - 1) / (unit * d->max_v);
   for (int i = 0; i < d->ncomp; ++i) {
     Comp* c = &d->comp[i];
     c->wib = (int)(((long)d->w * c->h + 8L * d->max_h - 1) / (8L * d->max_h));
@@ -782,7 +1110,12 @@ static void get_sof(Dec* d, int marker, int header_only) {
     c->dh = (int)(((long)d->h * c->v + d->max_v - 1) / d->max_v);
     c->bw = d->mcux * c->h;
     c->bh = d->mcuy * c->v;
-    if (!header_only) {
+    if (!header_only && d->lossless) {
+      c->diff = (int32_t*)calloc((size_t)c->bw * c->bh, sizeof(int32_t));
+      c->first = (uint8_t*)calloc((size_t)c->bh, 1);
+      if (!c->diff || !c->first)
+        fail(d, "out of memory for a %d x %d JPEG", d->w, d->h);
+    } else if (!header_only) {
       c->coef = (int16_t*)calloc((size_t)c->bw * c->bh * 64, sizeof(int16_t));
       if (!c->coef) fail(d, "out of memory for a %d x %d JPEG", d->w, d->h);
     }
@@ -849,6 +1182,26 @@ static void get_app(Dec* d, int marker) {
   }
 }
 
+/* jdmarker.c get_dac: arithmetic conditioning, L and U of a DC table and
+ * K of an AC table */
+static void get_dac(Dec* d) {
+  long length = mword(d) - 2;
+  while (length > 0) {
+    const int index = mbyte(d), val = mbyte(d);
+    length -= 2;
+    if (index >= 32) fail(d, "bogus DAC index %d", index);
+    if (index >= 16) {
+      d->dac_k[index - 16] = (uint8_t)val;
+    } else {
+      d->dac_l[index] = (uint8_t)(val & 15);
+      d->dac_u[index] = (uint8_t)(val >> 4);
+      if (d->dac_l[index] > d->dac_u[index])
+        fail(d, "bogus DAC value 0x%x", val);
+    }
+  }
+  if (length != 0) fail(d, "bogus DAC marker length");
+}
+
 static void get_sos(Dec* d) {
   if (!d->have_sof) fail(d, "SOS marker before SOF");
   const int length = mword(d);
@@ -891,7 +1244,9 @@ static void table(Dec* d, int dc, int index) {
 static void start_scan(Dec* d, int* mcus_per_row, int* mcu_rows) {
   for (int i = 0; i < d->ns; ++i) {
     Comp* c = &d->comp[d->sc[i]];
-    if (!c->latched) {
+    if (!c->latched && d->lossless) {
+      c->latched = 1;             /* lossless: no quantization */
+    } else if (!c->latched) {
       if (!d->qdef[c->tq])
         fail(d, "quantization table %d is not defined", c->tq);
       for (int k = 0; k < 64; ++k) c->qt[k] = (int16_t)d->qtab[c->tq][k];
@@ -927,17 +1282,30 @@ static void start_scan(Dec* d, int* mcus_per_row, int* mcu_rows) {
     for (int i = 0; i < d->ns; ++i) {
       Comp* c = &d->comp[d->sc[i]];
       for (int k = d->Ss; k <= d->Se; ++k) c->coef_bits[k] = d->Al;
+      if (d->arith) continue;
       if (dc_band) {
         if (d->Ah == 0) table(d, 1, c->dc_tbl);
       } else {
         table(d, 0, c->ac_tbl);
       }
     }
-  } else {
+  } else if (!d->arith) {
     for (int i = 0; i < d->ns; ++i) {
       table(d, 1, d->comp[d->sc[i]].dc_tbl);
       table(d, 0, d->comp[d->sc[i]].ac_tbl);
     }
+  }
+  if (d->arith) {         /* jdarith.c start_pass: the bins this scan uses */
+    for (int i = 0; i < d->ns; ++i) {
+      const Comp* c = &d->comp[d->sc[i]];
+      if (!d->progressive || (d->Ss == 0 && d->Ah == 0))
+        memset(d->dc_stats[c->dc_tbl], 0, 64);
+      if (!d->progressive || d->Ss) memset(d->ac_stats[c->ac_tbl], 0, 256);
+      d->dc_context[i] = 0;
+    }
+    d->ar_c = 0;
+    d->ar_a = 0;
+    d->ar_ct = -16;
   }
   d->bs.buf = 0;
   d->bs.bits = 0;
@@ -950,11 +1318,15 @@ static void start_scan(Dec* d, int* mcus_per_row, int* mcu_rows) {
 static void decode_scan(Dec* d) {
   int mcus_per_row, mcu_rows;
   int16_t* blocks[MAX_BLOCKS];
-  int (*mcu)(Dec*, int16_t**) = mcu_sequential;
+  int (*mcu)(Dec*, int16_t**) = d->arith ? mcu_arith : mcu_sequential;
   start_scan(d, &mcus_per_row, &mcu_rows);
-  if (d->progressive)
+  if (d->progressive && d->arith)
+    mcu = d->Ss == 0 ? (d->Ah == 0 ? mcu_arith_dc_first : mcu_arith_dc_refine)
+                     : (d->Ah == 0 ? mcu_arith_ac_first : mcu_arith_ac_refine);
+  else if (d->progressive)
     mcu = d->Ss == 0 ? (d->Ah == 0 ? mcu_dc_first : mcu_dc_refine)
                      : (d->Ah == 0 ? mcu_ac_first : mcu_ac_refine);
+  d->no_suspend = d->arith;
   for (int my = 0; my < mcu_rows; ++my) {
     for (int mx = 0; mx < mcus_per_row; ++mx) {
       if (d->ns == 1) {
@@ -980,6 +1352,157 @@ static void decode_scan(Dec* d) {
     }
   }
   d->bs.bits = 0;                 /* finish_pass: the unused bits go */
+  d->no_suspend = 0;
+}
+
+/* jdlhuff.c decode_mcus, one MCU: each sample's difference category and
+ * bits (16: 32768, no bits); 0 to suspend. A row begun with the data
+ * already short of its marker keeps zero differences, as libjpeg skips
+ * it; one that runs short inside decodes on from zero bits. */
+static int mcu_lossless(Dec* d, int32_t** dst, int skip) {
+  if (!skip) {
+    Bits b = load_bits(d);
+    for (int blkn = 0; blkn < d->nblocks; ++blkn) {
+      const Comp* c = &d->comp[d->sc[d->member[blkn]]];
+      int s = huff_decode(d, &b, &d->dct[c->dc_tbl]), r;
+      if (s < 0) return 0;
+      if (s == 16) {
+        s = 32768;
+      } else if (s) {
+        NEED(d, &b, s, return 0);
+        r = GET_BITS(&b, s);
+        s = HUFF_EXTEND(r, s);
+      }
+      *dst[blkn] = s;
+    }
+    save_bits(d, &b);
+  }
+  return 1;
+}
+
+/* a lossless scan (jddiffct.c, jdlhuff.c): the differences of its
+ * components into their MCU grids; restarts at MCU-row boundaries mark
+ * the row where their predictors start again */
+static void decode_scan_lossless(Dec* d) {
+  int mcus_per_row, mcu_rows;
+  start_scan(d, &mcus_per_row, &mcu_rows);
+  if (d->Ss < 1 || d->Ss > 7 || d->Se != 0 || d->Ah != 0 || d->Al >= 8)
+    fail(d, "invalid lossless scan Ss=%d Se=%d Ah=%d Al=%d", d->Ss, d->Se,
+         d->Ah, d->Al);
+  if (d->ns == 1) {
+    const Comp* c = &d->comp[d->sc[0]];
+    mcus_per_row = c->dw;
+    mcu_rows = c->dh;
+  } else {
+    mcus_per_row = d->mcux;
+    mcu_rows = d->mcuy;
+  }
+  if (d->restart_interval % mcus_per_row != 0)
+    fail(d, "the restart interval %d is not a multiple of the %d MCUs in "
+            "a row, which libjpeg's lossless decoder needs",
+         d->restart_interval, mcus_per_row);
+  for (int i = 0; i < d->ns; ++i) {
+    Comp* c = &d->comp[d->sc[i]];
+    c->pred = d->Ss;
+    c->pt = d->Al;
+    c->first[0] = 1;
+  }
+  int32_t* dst[MAX_BLOCKS];
+  for (int my = 0; my < mcu_rows; ++my) {
+    int skip = 0;
+    for (int mx = 0; mx < mcus_per_row; ++mx) {
+      int reset = 0;
+      if (d->restart_interval && d->restarts_to_go == 0) {
+        process_restart(d);
+        reset = 1;
+      }
+      if (mx == 0) {
+        /* a row begun out of data: zero differences, predictors reset,
+         * so the rows come out at the centre value (jdlhuff.c) */
+        skip = d->insufficient;
+        reset |= skip;
+      }
+      for (int i = 0; reset && i < d->ns; ++i) {
+        Comp* c = &d->comp[d->sc[i]];
+        /* libjpeg undifferences an iMCU row (v sample rows of a lone
+         * component) once its MCU rows are read: a reset inside it starts
+         * the predictors again at its first row */
+        c->first[d->ns == 1 ? my / c->v * c->v : my * c->v] = 1;
+      }
+      int n = 0;
+      for (int i = 0; i < d->ns; ++i) {
+        Comp* c = &d->comp[d->sc[i]];
+        if (d->ns == 1) {
+          dst[n++] = c->diff + (size_t)my * c->bw + mx;
+          continue;
+        }
+        for (int y = 0; y < c->v; ++y)
+          for (int x = 0; x < c->h; ++x)
+            dst[n++] = c->diff + (size_t)(my * c->v + y) * c->bw +
+                       mx * c->h + x;
+      }
+      while (!mcu_lossless(d, dst, skip)) feed(d);
+      if (d->restart_interval) d->restarts_to_go--;
+    }
+  }
+  d->bs.bits = 0;
+}
+
+/* jdlossls.c: undifference each component's rows (the first row of the
+ * scan and of each restart interval from 1 << (7 - Pt) along the row, the
+ * others by the scan's predictor, the first column from the row above),
+ * then scale by the point transform to 8-bit samples */
+static void undifference(Dec* d) {
+  for (int i = 0; i < d->ncomp; ++i)
+    if (!d->comp[i].latched)
+      fail(d, "lossless JPEG component %d appears in no scan: libjpeg's "
+              "lossless decoder stops there", d->comp[i].id);
+  for (int i = 0; i < d->ncomp; ++i) {
+    Comp* c = &d->comp[i];
+    const size_t stride = (size_t)c->wib * 8;
+    int32_t* prev = (int32_t*)calloc((size_t)c->dw, sizeof(int32_t));
+    int32_t* cur = (int32_t*)calloc((size_t)c->dw, sizeof(int32_t));
+    c->plane = (uint8_t*)calloc(stride * (size_t)c->hib * 8, 1);
+    if (!prev || !cur || !c->plane) {
+      free(prev);
+      free(cur);
+      fail(d, "out of memory for a %d x %d JPEG", d->w, d->h);
+    }
+    for (int r = 0; r < c->dh; ++r) {
+      const int32_t* df = c->diff + (size_t)r * c->bw;
+      if (r == 0 || c->first[r]) {
+        int ra = (df[0] + (1 << (7 - c->pt))) & 0xFFFF;
+        cur[0] = ra;
+        for (int x = 1; x < c->dw; ++x) cur[x] = ra = (df[x] + ra) & 0xFFFF;
+      } else {
+        int rb = prev[0], rc;
+        int ra = (df[0] + rb) & 0xFFFF;
+        cur[0] = ra;
+        for (int x = 1; x < c->dw; ++x) {
+          rc = rb;
+          rb = prev[x];
+          int64_t p;
+          switch (c->pred) {
+            case 1: p = ra; break;
+            case 2: p = rb; break;
+            case 3: p = rc; break;
+            case 4: p = (int64_t)ra + rb - rc; break;
+            case 5: p = ra + (((int64_t)rb - rc) >> 1); break;
+            case 6: p = rb + (((int64_t)ra - rc) >> 1); break;
+            default: p = ((int64_t)ra + rb) >> 1; break;
+          }
+          cur[x] = ra = (int)((df[x] + p) & 0xFFFF);
+        }
+      }
+      uint8_t* o = c->plane + (size_t)r * stride;
+      for (int x = 0; x < c->dw; ++x) o[x] = (uint8_t)(cur[x] << c->pt);
+      int32_t* t = prev;
+      prev = cur;
+      cur = t;
+    }
+    free(prev);
+    free(cur);
+  }
 }
 
 /* ---------------------------------------------------------------- output */
@@ -1110,6 +1633,8 @@ enum { UP_FULL, UP_H2V1, UP_H1V2, UP_H2V2, UP_REP };
 /* jdsample.c jinit_upsampler's choice for component c */
 static int up_method(Dec* d, const Comp* c) {
   if (c->h == d->max_h && c->v == d->max_v) return UP_FULL;
+  if (d->lossless && d->max_h % c->h == 0 && d->max_v % c->v == 0)
+    return UP_REP;          /* a 1x1 DCT scale: libjpeg's fancy is off */
   if (c->h * 2 == d->max_h && c->v == d->max_v)
     return c->dw > 2 ? UP_H2V1 : UP_REP;
   if (c->h == d->max_h && c->v * 2 == d->max_v) return UP_H1V2;
@@ -1174,34 +1699,198 @@ static const uint8_t* up_row(const Dec* d, const Comp* c, int method, int y,
   return tmp;
 }
 
-/* libjpeg block-smooths a progressive image whose scans leave any of the
- * first nine AC coefficients unrefined (jdcoefct.c smoothing_ok) */
-static void check_smoothing(Dec* d) {
+/* jdcoefct.c smoothing_ok (libjpeg-turbo 2.1 and later): a progressive
+ * image is block-smoothed where every component has its quantization table
+ * (nonzero at the DC and first nine AC positions) and a DC scan, and some
+ * of the first nine AC coefficients are not yet exact */
+static int smoothing_ok(const Dec* d) {
   static const int qpos[10] = {0, 1, 8, 16, 9, 2, 3, 10, 17, 24};
   int useful = 0;
+  if (!d->progressive) return 0;
   for (int i = 0; i < d->ncomp; ++i) {
     const Comp* c = &d->comp[i];
-    if (!c->latched) return;
+    if (!c->latched) return 0;
     for (int k = 0; k < 10; ++k)
-      if (c->qt[qpos[k]] == 0) return;
-    if (c->coef_bits[0] < 0) return;
+      if (c->qt[qpos[k]] == 0) return 0;
+    if (c->coef_bits[0] < 0) return 0;
     for (int k = 1; k < 10; ++k)
       if (c->coef_bits[k] != 0) useful = 1;
   }
-  if (useful)
-    fail(d, "a progressive JPEG whose scans leave coefficients unrefined: "
-            "libjpeg block-smooths it, and block smoothing is not yet taken "
-            "by the port's JPEG decoder");
+  return useful;
+}
+
+/* the estimate of one coefficient: libjpeg's rounding and, for Al > 0, its
+ * clamp below 1 << Al */
+static inline int16_t smooth_pred(int64_t q, int64_t num, int al) {
+  int pred;
+  if (num >= 0) {
+    pred = (int)(((q << 7) + num) / (q << 8));
+    if (al > 0 && pred >= (1 << al)) pred = (1 << al) - 1;
+  } else {
+    pred = (int)(((q << 7) - num) / (q << 8));
+    if (al > 0 && pred >= (1 << al)) pred = (1 << al) - 1;
+    pred = -pred;
+  }
+  return (int16_t)pred;
+}
+
+/* jdcoefct.c decompress_smooth_data over component c: each block's DC and
+ * first nine AC coefficients estimated from the DC values of a 5x5 block
+ * neighbourhood where they are still zero and not exact (with only DC
+ * known, the DC is re-estimated too), then the IDCT. The rows are counted
+ * as libjpeg counts them: image_block_rows is the iMCU row's block rows
+ * times the number of iMCU rows, also in the last, shorter iMCU row. */
+static void smooth_component(const Dec* d, const Comp* c) {
+  const int* cb = c->coef_bits;
+  const int16_t* qt = c->qt;
+  const int change_dc = cb[1] == -1 && cb[2] == -1 && cb[3] == -1 &&
+                        cb[4] == -1 && cb[5] == -1 && cb[6] == -1 &&
+                        cb[7] == -1 && cb[8] == -1 && cb[9] == -1;
+  const int64_t Q00 = qt[0], Q01 = qt[1], Q10 = qt[8], Q20 = qt[16],
+                Q11 = qt[9], Q02 = qt[2], Q03 = qt[3], Q12 = qt[10],
+                Q21 = qt[17], Q30 = qt[24];
+  const size_t stride = (size_t)c->wib * 8, row_blocks = (size_t)c->bw * 64;
+  const int total = d->mcuy, last = c->wib - 1;
+  for (int imcu = 0; imcu < total; ++imcu) {
+    int block_rows = c->v;
+    if (imcu == total - 1) {
+      block_rows = c->hib % c->v;
+      if (block_rows == 0) block_rows = c->v;
+    }
+    const int image_block_rows = block_rows * total;
+    for (int br = 0; br < block_rows; ++br) {
+      const int row = imcu * c->v + br;
+      const int ibr = imcu * block_rows + br;
+      const int prev = ibr > 0 ? row - 1 : row;
+      const int pprev = ibr > 1 ? row - 2 : prev;
+      const int next = ibr < image_block_rows - 1 ? row + 1 : row;
+      const int nnext = ibr < image_block_rows - 2 ? row + 2 : next;
+      const int16_t* r0 = c->coef + (size_t)pprev * row_blocks;
+      const int16_t* r1 = c->coef + (size_t)prev * row_blocks;
+      const int16_t* r2 = c->coef + (size_t)row * row_blocks;
+      const int16_t* r3 = c->coef + (size_t)next * row_blocks;
+      const int16_t* r4 = c->coef + (size_t)nnext * row_blocks;
+      int DC01, DC02, DC03, DC04, DC05, DC06, DC07, DC08, DC09, DC10, DC11,
+          DC12, DC13, DC14, DC15, DC16, DC17, DC18, DC19, DC20, DC21, DC22,
+          DC23, DC24, DC25;
+      DC01 = DC02 = DC03 = DC04 = DC05 = r0[0];
+      DC06 = DC07 = DC08 = DC09 = DC10 = r1[0];
+      DC11 = DC12 = DC13 = DC14 = DC15 = r2[0];
+      DC16 = DC17 = DC18 = DC19 = DC20 = r3[0];
+      DC21 = DC22 = DC23 = DC24 = DC25 = r4[0];
+      for (int bn = 0; bn <= last; ++bn) {
+        int16_t ws[64];
+        memcpy(ws, r2 + (size_t)bn * 64, sizeof ws);
+        if (bn == 0 && bn < last) {
+          DC04 = DC05 = r0[64];
+          DC09 = DC10 = r1[64];
+          DC14 = DC15 = r2[64];
+          DC19 = DC20 = r3[64];
+          DC24 = DC25 = r4[64];
+        }
+        if (bn + 1 < last) {
+          const size_t o = (size_t)(bn + 2) * 64;
+          DC05 = r0[o];
+          DC10 = r1[o];
+          DC15 = r2[o];
+          DC20 = r3[o];
+          DC25 = r4[o];
+        }
+        int al;
+        int64_t num;
+        if ((al = cb[1]) != 0 && ws[1] == 0) {                    /* AC01 */
+          num = Q00 * (change_dc
+                ? (-DC01 - DC02 + DC04 + DC05 - 3 * DC06 + 13 * DC07 -
+                   13 * DC09 + 3 * DC10 - 3 * DC11 + 38 * DC12 - 38 * DC14 +
+                   3 * DC15 - 3 * DC16 + 13 * DC17 - 13 * DC19 + 3 * DC20 -
+                   DC21 - DC22 + DC24 + DC25)
+                : (-7 * DC11 + 50 * DC12 - 50 * DC14 + 7 * DC15));
+          ws[1] = smooth_pred(Q01, num, al);
+        }
+        if ((al = cb[2]) != 0 && ws[8] == 0) {                    /* AC10 */
+          num = Q00 * (change_dc
+                ? (-DC01 - 3 * DC02 - 3 * DC03 - 3 * DC04 - DC05 - DC06 +
+                   13 * DC07 + 38 * DC08 + 13 * DC09 - DC10 + DC16 -
+                   13 * DC17 - 38 * DC18 - 13 * DC19 + DC20 + DC21 +
+                   3 * DC22 + 3 * DC23 + 3 * DC24 + DC25)
+                : (-7 * DC03 + 50 * DC08 - 50 * DC18 + 7 * DC23));
+          ws[8] = smooth_pred(Q10, num, al);
+        }
+        if ((al = cb[3]) != 0 && ws[16] == 0) {                   /* AC20 */
+          num = Q00 * (change_dc
+                ? (DC03 + 2 * DC07 + 7 * DC08 + 2 * DC09 - 5 * DC12 -
+                   14 * DC13 - 5 * DC14 + 2 * DC17 + 7 * DC18 + 2 * DC19 +
+                   DC23)
+                : (-DC03 + 13 * DC08 - 24 * DC13 + 13 * DC18 - DC23));
+          ws[16] = smooth_pred(Q20, num, al);
+        }
+        if ((al = cb[4]) != 0 && ws[9] == 0) {                    /* AC11 */
+          num = Q00 * (change_dc
+                ? (-DC01 + DC05 + 9 * DC07 - 9 * DC09 - 9 * DC17 +
+                   9 * DC19 + DC21 - DC25)
+                : (DC10 + DC16 - 10 * DC17 + 10 * DC19 - DC02 - DC20 +
+                   DC22 - DC24 + DC04 - DC06 + 10 * DC07 - 10 * DC09));
+          ws[9] = smooth_pred(Q11, num, al);
+        }
+        if ((al = cb[5]) != 0 && ws[2] == 0) {                    /* AC02 */
+          num = Q00 * (change_dc
+                ? (2 * DC07 - 5 * DC08 + 2 * DC09 + DC11 + 7 * DC12 -
+                   14 * DC13 + 7 * DC14 + DC15 + 2 * DC17 - 5 * DC18 +
+                   2 * DC19)
+                : (-DC11 + 13 * DC12 - 24 * DC13 + 13 * DC14 - DC15));
+          ws[2] = smooth_pred(Q02, num, al);
+        }
+        if (change_dc) {
+          if ((al = cb[6]) != 0 && ws[3] == 0) {                  /* AC03 */
+            num = Q00 * (DC07 - DC09 + 2 * DC12 - 2 * DC14 + DC17 - DC19);
+            ws[3] = smooth_pred(Q03, num, al);
+          }
+          if ((al = cb[7]) != 0 && ws[10] == 0) {                 /* AC12 */
+            num = Q00 * (DC07 - 3 * DC08 + DC09 - DC17 + 3 * DC18 - DC19);
+            ws[10] = smooth_pred(Q12, num, al);
+          }
+          if ((al = cb[8]) != 0 && ws[17] == 0) {                 /* AC21 */
+            num = Q00 * (DC07 - DC09 - 3 * DC12 + 3 * DC14 + DC17 - DC19);
+            ws[17] = smooth_pred(Q21, num, al);
+          }
+          if ((al = cb[9]) != 0 && ws[24] == 0) {                 /* AC30 */
+            num = Q00 * (DC07 + 2 * DC08 + DC09 - DC17 - 2 * DC18 - DC19);
+            ws[24] = smooth_pred(Q30, num, al);
+          }
+          num = Q00 * (-2 * DC01 - 6 * DC02 - 8 * DC03 - 6 * DC04 -
+                       2 * DC05 - 6 * DC06 + 6 * DC07 + 42 * DC08 +
+                       6 * DC09 - 6 * DC10 - 8 * DC11 + 42 * DC12 +
+                       152 * DC13 + 42 * DC14 - 8 * DC15 - 6 * DC16 +
+                       6 * DC17 + 42 * DC18 + 6 * DC19 - 6 * DC20 -
+                       2 * DC21 - 6 * DC22 - 8 * DC23 - 6 * DC24 -
+                       2 * DC25);
+          ws[0] = smooth_pred(Q00, num, 0);
+        }
+        idct_islow(ws, qt, c->plane + (size_t)row * 8 * stride +
+                               (size_t)bn * 8, stride);
+        DC01 = DC02; DC02 = DC03; DC03 = DC04; DC04 = DC05;
+        DC06 = DC07; DC07 = DC08; DC08 = DC09; DC09 = DC10;
+        DC11 = DC12; DC12 = DC13; DC13 = DC14; DC14 = DC15;
+        DC16 = DC17; DC17 = DC18; DC18 = DC19; DC19 = DC20;
+        DC21 = DC22; DC22 = DC23; DC23 = DC24; DC24 = DC25;
+      }
+    }
+  }
 }
 
 static void output(Dec* d, uint8_t* out) {
-  for (int i = 0; i < d->ncomp; ++i) {
+  const int smooth = smoothing_ok(d);
+  if (d->lossless) undifference(d);
+  for (int i = 0; i < d->ncomp && !d->lossless; ++i) {
     Comp* c = &d->comp[i];
-    if (!c->latched)
-      fail(d, "component %d appears in no scan", c->id);
+    /* a component in no scan keeps a zero table (jddctmgr.c): grey 128 */
     const size_t stride = (size_t)c->wib * 8;
     c->plane = (uint8_t*)malloc(stride * (size_t)c->hib * 8);
     if (!c->plane) fail(d, "out of memory for a %d x %d JPEG", d->w, d->h);
+    if (smooth) {
+      smooth_component(d, c);
+      continue;
+    }
     for (int by = 0; by < c->hib; ++by)
       for (int bx = 0; bx < c->wib; ++bx)
         idct_islow(c->coef + ((size_t)by * c->bw + bx) * 64, c->qt,
@@ -1209,16 +1898,22 @@ static void output(Dec* d, uint8_t* out) {
                    stride);
   }
   /* jdapimin.c default_decompress_parms */
-  int ycc = 0;
-  if (d->ncomp == 3) {
+  int ycc = d->out_ycc;
+  /* 4 components: YCCK where an Adobe marker says transform 2 or another
+   * not 0, CMYK otherwise */
+  const int ycck = d->ncomp == 4 && d->adobe && d->adobe_transform != 0;
+  if (d->ncomp == 3 && !d->out_raw) {
     if (d->jfif)
       ycc = 1;
     else if (d->adobe)
       ycc = d->adobe_transform != 0;
-    else
-      ycc = !(d->comp[0].id == 'R' && d->comp[1].id == 'G' &&
-              d->comp[2].id == 'B');
+    else              /* lossless: ids 1, 2, 3 and unknown ones are RGB */
+      ycc = !d->lossless && !(d->comp[0].id == 'R' && d->comp[1].id == 'G' &&
+                              d->comp[2].id == 'B');
   }
+  if (d->lossless && (ycc || ycck))
+    fail(d, "a lossless JPEG in YCbCr or YCCK: libjpeg converts no colour "
+            "in lossless mode");
   int cr_r[256], cb_b[256];
   int64_t cr_g[256], cb_g[256];
   uint8_t limit_tab[256 * 3];          /* jdmaster.c's sample_range_limit */
@@ -1246,15 +1941,41 @@ static void output(Dec* d, uint8_t* out) {
     free(colsum);
     fail(d, "out of memory for a %d x %d JPEG", d->w, d->h);
   }
+  const int nout = d->out_raw ? d->ncomp : 3;
   for (int y = 0; y < d->h; ++y) {
     const uint8_t* r[MAX_COMPS];
-    uint8_t* o = out + (size_t)y * d->w * 3;
+    uint8_t* o = out + (size_t)y * d->w * nout;
     for (int i = 0; i < d->ncomp; ++i)
       r[i] = up_row(d, &d->comp[i], method[i], y, tmp + (size_t)i * width,
                     colsum);
-    if (d->ncomp == 1) {
+    if (d->out_raw && !ycc) {
+      for (int x = 0; x < d->w; ++x)
+        for (int i = 0; i < d->ncomp; ++i) o[nout * x + i] = r[i][x];
+    } else if (d->ncomp == 1) {
       for (int x = 0; x < d->w; ++x) o[3 * x] = o[3 * x + 1] = o[3 * x + 2] =
           r[0][x];
+    } else if (d->ncomp == 4) {
+      /* libjpeg's CMYK (YCCK through jdcolor.c ycck_cmyk_convert), read by
+       * PIL as CMYK;I (inverted), then PIL's cmyk2rgb: with c' = 255 - c
+       * and k' = 255 - k, each channel is k - c' * k / 255 (MULDIV255) */
+      for (int x = 0; x < d->w; ++x) {
+        int cmy[3];
+        const int k = r[3][x];
+        if (ycck) {
+          const int yy = r[0][x], cb = r[1][x], cr = r[2][x];
+          cmy[0] = limit[255 - (yy + cr_r[cr])];
+          cmy[1] = limit[255 - (yy + (int)((cb_g[cb] + cr_g[cr]) >> 16))];
+          cmy[2] = limit[255 - (yy + cb_b[cb])];
+        } else {
+          cmy[0] = r[0][x];
+          cmy[1] = r[1][x];
+          cmy[2] = r[2][x];
+        }
+        for (int ch = 0; ch < 3; ++ch) {
+          const int t = (255 - cmy[ch]) * k + 128;
+          o[3 * x + ch] = (uint8_t)(k - (((t >> 8) + t) >> 8));
+        }
+      }
     } else if (!ycc) {
       for (int x = 0; x < d->w; ++x) {
         o[3 * x] = r[0][x];
@@ -1282,28 +2003,36 @@ static void read_file(Dec* d, int header_only) {
     if (d->len < 2 || d->data[0] != 0xFF || d->data[1] != 0xD8)
       fail(d, "not a JPEG file: it does not start with the SOI marker");
     d->pos = 2;
-    d->end = d->len < CHUNK ? d->len : CHUNK;
+    d->fixed_bin[0] = 113;            /* jdarith.c: the fixed 0.5 bin */
+    for (int i = 0; i < 16; ++i) {    /* jdmarker.c get_soi */
+      d->dac_l[i] = 0;
+      d->dac_u[i] = 1;
+      d->dac_k[i] = 5;
+    }
+    d->end = d->len < CHUNK || d->tiff ? d->len : CHUNK;
     d->unread_marker = 0;
+    d->restart_interval = 0;
   }
   for (;;) {
     if (d->unread_marker == 0) next_marker(d);
     const int m = d->unread_marker;
     d->unread_marker = 0;
-    if (m == 0xC0 || m == 0xC1 || m == 0xC2) {
+    if (m == 0xC0 || m == 0xC1 || m == 0xC2 || m == 0xC3 || m == 0xC9 ||
+        m == 0xCA) {
+      if (d->tables_only) fail(d, "the JPEGTables of a TIFF hold an image");
       get_sof(d, m, header_only);
       if (header_only) return;
-    } else if (m == 0xC3) {
-      fail(d, "lossless JPEG (SOF3) is not yet taken by the port's JPEG "
-              "decoder");
+    } else if (m == 0xCB) {
+      fail(d, "arithmetic-coded lossless JPEG (SOF11) is not yet taken by "
+              "the port's JPEG decoder");
     } else if ((m >= 0xC5 && m <= 0xC7) || (m >= 0xCD && m <= 0xCF) ||
                m == 0xDE || m == 0xDF) {
       fail(d, "hierarchical JPEG (marker 0x%02X) is not yet taken by the "
               "port's JPEG decoder", m);
-    } else if ((m >= 0xC9 && m <= 0xCB) || m == 0xCC) {
-      fail(d, "arithmetic-coded JPEG (marker 0x%02X) is not yet taken by the "
-              "port's JPEG decoder", m);
+    } else if (m == 0xCC) {
+      get_dac(d);
     } else if (m == 0xDC) {
-      fail(d, "a DNL marker: DNL is not yet taken by the port's JPEG decoder");
+      skip(d, mword(d) - 2L);     /* DNL after a known height: ignored */
     } else if (m == 0xC4) {
       get_dht(d);
     } else if (m == 0xDB) {
@@ -1320,6 +2049,7 @@ static void read_file(Dec* d, int header_only) {
     } else if (m == 0xD8) {
       fail(d, "a second SOI marker");
     } else if (m == 0xD9) {
+      if (d->tables_only) return;
       if (!d->scans) fail(d, "the JPEG data holds no image");
       return;
     } else if (m == 0xDA) {
@@ -1328,7 +2058,10 @@ static void read_file(Dec* d, int header_only) {
         fail(d, "a second scan after a complete single-scan image");
       get_sos(d);
       if (d->scans == 1) d->single_scan = !d->progressive && d->ns == d->ncomp;
-      decode_scan(d);
+      if (d->lossless)
+        decode_scan_lossless(d);
+      else
+        decode_scan(d);
       if (d->single_scan) return;   /* the rows can go out: jpeg_decode */
     } else {
       fail(d, "unknown JPEG marker 0x%02X", m);
@@ -1340,6 +2073,8 @@ static void release(Dec* d) {
   for (int i = 0; i < MAX_COMPS; ++i) {
     free(d->comp[i].coef);
     free(d->comp[i].plane);
+    free(d->comp[i].diff);
+    free(d->comp[i].first);
   }
   free(d);
 }
@@ -1390,11 +2125,59 @@ int jpeg_decode(const uint8_t* data, size_t len, uint8_t* out, int w, int h,
   if (d->w != w || d->h != h)
     fail(d, "the image is %d x %d, not the %d x %d asked for", d->w, d->h, w,
          h);
-  if (d->progressive) check_smoothing(d);
   output(d, out);
   if (d->single_scan) {
     /* jpeg_finish_decompress reads on to EOI: PIL ignores its running out
      * of data once every row is out, but not an error in what it reads */
+    d->tail = 1;
+    read_file(d, 0);
+  }
+  release(d);
+  return 0;
+}
+
+/* Decode one strip or tile of a JPEG-compressed TIFF (compression 7) as
+ * libtiff's tif_jpeg.c drives libjpeg: the JPEGTables stream (tables only,
+ * `tlen` may be 0) first, then the strip's own stream, all of it at hand
+ * with a fake EOI after its end (`data` holds len + 2 bytes, the last two
+ * 0xFF 0xD9). The components come out as they are (libtiff asks for
+ * JCS_UNKNOWN), or YCbCr -> RGB where `ycc` (JPEGCOLORMODE_RGB for
+ * photometric YCbCr): h rows of w * ncomp bytes at `out`. The stream must
+ * be w x h with ncomp components. Returns 0, or -1 with the message in
+ * err. */
+int jpeg_decode_tiff(const uint8_t* tables, size_t tlen, const uint8_t* data,
+                     size_t len, uint8_t* out, int w, int h, int ncomp,
+                     int ycc, char* err) {
+  Dec* d = (Dec*)calloc(1, sizeof(Dec));
+  err[0] = 0;
+  if (!d) {
+    snprintf(err, ERR_LEN, "out of memory");
+    return -1;
+  }
+  d->err = err;
+  d->tiff = 1;
+  const int jumped = setjmp(d->jmp);
+  if (jumped) {
+    release(d);
+    return jumped == 2 ? 0 : -1;
+  }
+  if (tlen) {
+    d->data = tables;
+    d->len = tlen;
+    d->tables_only = 1;
+    read_file(d, 0);
+    d->tables_only = 0;
+  }
+  d->data = data;
+  d->len = len + 2;
+  read_file(d, 0);
+  if (d->w != w || d->h != h || d->ncomp != ncomp)
+    fail(d, "JPEG strip/tile size: %d x %d of %d components, not the %d x "
+            "%d of %d the TIFF expects", d->w, d->h, d->ncomp, w, h, ncomp);
+  d->out_raw = 1;
+  d->out_ycc = ycc && ncomp == 3;
+  output(d, out);
+  if (d->single_scan) {
     d->tail = 1;
     read_file(d, 0);
   }

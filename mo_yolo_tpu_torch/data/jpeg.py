@@ -4,19 +4,31 @@ library).
 
 - `decode_jpeg(data)` -> uint8 [H, W, 3] RGB, pixel for pixel what the JAX
   package's `load_image` gets from PIL (`Image.open(...).convert("RGB")`):
-  baseline and extended Huffman (SOF0, SOF1) and progressive (SOF2) files,
-  grey or three components at any sampling factors libjpeg takes, restart
-  markers. A file whose data ends before the image is complete raises
-  where PIL raises ("image file is truncated"). Arithmetic coding,
-  lossless, 12-bit, hierarchical, DNL, CMYK/YCCK and progressive files that
-  libjpeg would block-smooth raise, naming what is not taken.
+  baseline and extended Huffman (SOF0, SOF1), progressive (SOF2) and
+  arithmetic-coded (SOF9, SOF10, with DAC conditioning) files; grey,
+  three components, or four (CMYK, YCCK: libjpeg's CMYK read by PIL as
+  CMYK;I, then PIL's cmyk2rgb) at any sampling factors libjpeg takes;
+  restart markers; progressive files whose scans leave coefficients
+  unrefined block-smoothed as libjpeg-turbo 2.1+ smooths them; a DNL
+  marker after a known height skipped. A file whose data ends before the
+  image is complete raises where PIL raises ("image file is truncated"),
+  and an arithmetic-coded file whose data runs past the 64 KiB PIL feeds
+  libjpeg first raises as PIL does ("broken data stream"): that decoder
+  cannot suspend. Lossless (SOF3, SOF11), 12-bit, hierarchical files and
+  a height left to DNL raise, naming what is not taken.
+- `decode_jpeg_tiff(tables, chunk, w, h, ncomp, ycc)` -> uint8 [h, w,
+  ncomp]: a strip or tile of a JPEG-compressed TIFF as libtiff drives
+  libjpeg (the JPEGTables first, no colour conversion, or YCbCr -> RGB).
 - `encode_jpeg(img, quality=75)` -> the bytes of PIL's `save(buf, "JPEG",
   quality=quality)` of a uint8 [H, W, 3] RGB image (JFIF, 4:2:0, baseline,
   standard tables), byte for byte.
 
 Every error is a `ValueError` with the codec's message; nothing falls back
 to another decoder. The C calls release the GIL and share no state, so the
-dataset's worker threads decode at once.
+dataset's worker threads decode at once. On the CPU,
+`tests/test_torch_port_jpeg.py` and `tests/test_torch_port_codecs.py` hold
+every case to the JAX package's `load_image`; on the card's host,
+`chip_smoke.py`'s `jpeg` phase holds the fixtures to PIL's digests.
 """
 
 from __future__ import annotations
@@ -57,6 +69,25 @@ def decode_jpeg(data: bytes) -> np.ndarray:
                                  ctypes.c_char_p])
     if decode(data, len(data), out.ctypes.data, w.value, h.value, err) != 0:
         raise ValueError(f"JPEG: {_message(err)}")
+    return out
+
+
+def decode_jpeg_tiff(tables: bytes, chunk: bytes, w: int, h: int,
+                     ncomp: int, ycc: bool = False) -> np.ndarray:
+    """One strip or tile of a JPEG-compressed TIFF -> uint8 [h, w, ncomp]:
+    the JPEGTables stream `tables` (may be empty) read first, then the
+    strip's stream, as libtiff drives libjpeg (no colour conversion, or
+    YCbCr -> RGB where `ycc`)."""
+    tables, chunk = bytes(tables), bytes(chunk) + b"\xff\xd9"
+    err = ctypes.create_string_buffer(ERR_LEN)
+    out = np.empty((h, w, ncomp), np.uint8)
+    decode = _fn("jpeg_decode_tiff", [
+        ctypes.c_char_p, ctypes.c_size_t, ctypes.c_char_p, ctypes.c_size_t,
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_char_p])
+    if decode(tables, len(tables), chunk, len(chunk) - 2, out.ctypes.data,
+              w, h, ncomp, int(ycc), err) != 0:
+        raise ValueError(f"TIFF: JPEG: {_message(err)}")
     return out
 
 

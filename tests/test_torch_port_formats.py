@@ -15,7 +15,8 @@ tolerance: every case equal byte for byte.
 - WebP: lossy at several qualities and odd sizes, lossless, alpha;
 - a file cut at half raises in the port where it raises in the JAX
   package; each feature still refused raises naming itself;
-- no file of the port's new decoders imports PIL or links a library.
+- no file of the port's new decoders imports PIL or links a library (the
+  TIFF codecs' C includes libc's headers only).
 """
 
 import hashlib
@@ -422,33 +423,56 @@ def _old_style_lzw() -> bytes:
     return _retag(write_tiff(px, 1), 259, 1, 5)
 
 
+def _pil_tiff(im, **kw) -> bytes:
+    buf = io.BytesIO()
+    im.save(buf, "TIFF", **kw)
+    return buf.getvalue()
+
+
+def _grey16() -> bytes:
+    px = frame(8, 8, 1).astype(np.int64) * 257 - 200
+    return write_tiff(px % 65536, 1, bits=16)
+
+
+# the layouts the port once refused: those PIL reads are decoded now, the
+# others still raise, naming themselves, and PIL raises on them too
 REFUSED_TIFF = {
-    "JPEG compression": lambda: _retag(write_tiff(frame(8, 8, 3), 2), 259,
-                                       1, 7),
-    "CCITT Group 4": lambda: _retag(write_tiff(frame(8, 8, 1) >> 7, 0,
-                                               bits=1), 259, 1, 4),
-    "16-bit samples": lambda: _retag(write_tiff(frame(8, 8, 1), 1), 258, 8,
-                                     16),
+    "JPEG compression": lambda: _pil_tiff(Image.fromarray(frame(8, 8, 3)),
+                                          compression="jpeg"),
+    "CCITT Group 4": lambda: _pil_tiff(Image.fromarray(
+        frame(8, 8, 1)[..., 0] >> 7 << 7).convert("1"), compression="group4"),
+    "16-bit samples": _grey16,
     "YCbCr": lambda: write_tiff(frame(8, 8, 3), 6),
     "CMYK": lambda: write_tiff(frame(8, 8, 4), 5),
     "predictor 3": lambda: write_tiff(frame(8, 8, 3), 2, compression=8,
                                       predictor=3),
-    "BigTIFF": lambda: b"II+\x00\x08\x00\x00\x00" + bytes(16),
+    "BigTIFF": lambda: write_tiff(frame(8, 8, 3), 2, compression=8,
+                                  big=True),
     "old-style LZW": _old_style_lzw,
 }
+TAKEN_NOW = ("JPEG compression", "CCITT Group 4", "16-bit samples", "CMYK",
+             "BigTIFF")
 
 
 @pytest.mark.parametrize("what", list(REFUSED_TIFF))
 def test_tiff_refused_features_name_themselves(tmp_path, what):
-    """Each layout not taken raises a ValueError naming it; PIL reads some
-    of them through libtiff, so these stay listed in ROADMAP."""
+    """Each layout the port once refused: now decoded as the JAX package
+    decodes it (real files: PIL's JPEG and Group 4, 16-bit grey, CMYK, a
+    BigTIFF), or, where PIL refuses it too (uncompressed YCbCr, predictor 3
+    on integer samples, old-style LZW), a ValueError naming it."""
     from mo_yolo_tpu_torch.data.tiff import decode_tiff
+    blob = REFUSED_TIFF[what]()
+    if what in TAKEN_NOW:
+        assert _same(tmp_path, blob, "f.tif") == "ok"
+        return
     with pytest.raises(ValueError, match=what):
-        decode_tiff(REFUSED_TIFF[what]())
+        decode_tiff(blob)
     path = tmp_path / "f.tif"
-    path.write_bytes(REFUSED_TIFF[what]())
+    path.write_bytes(blob)
     with pytest.raises(ValueError, match=what):
         _port_load(path)
+    with pytest.raises(Exception):
+        _jax_load(path)
 
 
 # ----------------------------------------------------------------- WebP
@@ -516,9 +540,12 @@ def test_decoders_import_no_pil_and_link_nothing():
         assert not re.search(r"^\s*(import|from) (PIL|cv2)", text,
                              re.MULTILINE), f
         assert "load_c(SRC)" in text or f in ("loaders.py", "decode.py"), f
-    for f in ("tiff.c", "webp.c", "decode.c"):
+    tiff = (port / "tiff.py").read_text()
+    assert "load_c(CCITT_SRC)" in tiff and "load_c(ZSTD_SRC)" in tiff
+    for f in ("tiff.c", "webp.c", "decode.c", "ccitt.c", "zstd.c"):
         text = (port / "csrc" / f).read_text()
         includes = {line.split()[1] for line in text.splitlines()
                     if line.startswith("#include")}
         assert includes <= {"<stddef.h>", "<stdint.h>", "<stdlib.h>",
-                            "<string.h>"}, (f, includes)
+                            "<string.h>"} | (
+            {"<setjmp.h>"} if f == "zstd.c" else set()), (f, includes)

@@ -15,7 +15,9 @@ and the JAX package, on the CPU.
   ("image file is truncated") and decodes where it decodes, files that
   lack only their EOI marker included (PIL's 64 KiB feeding decides which;
   the larger files cross it);
-- the processes not taken raise, naming them;
+- CMYK, YCCK, arithmetic coding and block smoothing (more in
+  `test_torch_port_codecs.py`); the processes not taken raise, naming
+  them, where the JAX package raises too;
 - the slice: `TrackValidator` on a JPEG copy of `make_mot_fixture` in both
   packages, within `test_torch_port_val.py`'s tolerances;
 - no file of the port names jpeglib.h, links libjpeg or imports PIL or
@@ -459,28 +461,49 @@ NOT_TAKEN = {
 }
 
 
+# the patches the port now decodes as libjpeg does: an arithmetic SOF9 over
+# Huffman data (decoded as the arithmetic data it now is), a DAC marker,
+# a DNL marker after a frame of known height
+TAKEN_NOW = ("arithmetic_dac", "arithmetic_sof9", "dnl_marker")
+
+
 @pytest.mark.parametrize("case", sorted(NOT_TAKEN))
-def test_processes_not_taken_raise_naming_them(case):
-    """Each on a PIL file whose SOF (or one marker) is patched."""
+def test_processes_not_taken_raise_naming_them(case, tmp_path):
+    """Each on a PIL file whose SOF (or one marker) is patched: the port
+    decodes what it now takes to the JAX `load_image`'s pixels, and raises
+    naming the process where the JAX package raises too (SOF10 over a
+    sequential scan and SOF11 raise in both)."""
     from mo_yolo_tpu_torch.data.jpeg import decode_jpeg
     patch, name = NOT_TAKEN[case]
-    with pytest.raises(ValueError, match=name):
-        decode_jpeg(patch(_pil_bytes(_frame(16, 16), quality=75)))
+    data = patch(_pil_bytes(_frame(16, 16), quality=75))
+    want = _jax_load(data, tmp_path)
+    if case in TAKEN_NOW:
+        got = _port_load(data, tmp_path)
+        assert isinstance(want, np.ndarray) and _same(got, want)
+        return
+    assert isinstance(want, str)
+    with pytest.raises(ValueError, match=name if case not in (
+            "arithmetic_sof10",) else "progressive"):
+        decode_jpeg(data)
 
 
 def test_cmyk_and_block_smoothing_raise_naming_them(tmp_path):
+    """Once refused, now the JAX package's pixels: PIL's CMYK JPEG (Adobe,
+    inverted), and a progressive file whose later scans are missing, which
+    libjpeg block-smooths; a PNG still raises."""
     from mo_yolo_tpu_torch.data.jpeg import decode_jpeg
     buf = io.BytesIO()
     Image.fromarray(_frame(16, 16)).convert("CMYK").save(buf, "JPEG")
-    with pytest.raises(ValueError, match="CMYK"):
-        decode_jpeg(buf.getvalue())
-    # a progressive file whose later scans are missing: libjpeg smooths it
+    data = buf.getvalue()
+    want = _jax_load(data, tmp_path)
+    assert isinstance(want, np.ndarray)
+    np.testing.assert_array_equal(decode_jpeg(data), want)
     data = _pil_bytes(_frame(40, 48), quality=75, progressive=True)
     short = data[:data.find(b"\xff\xda", data.find(b"\xff\xda") + 2)] + \
         b"\xff\xd9"
-    assert isinstance(_jax_load(short, tmp_path), np.ndarray)
-    with pytest.raises(ValueError, match="block smoothing"):
-        decode_jpeg(short)
+    want = _jax_load(short, tmp_path)
+    assert isinstance(want, np.ndarray)
+    np.testing.assert_array_equal(decode_jpeg(short), want)
     with pytest.raises(ValueError, match="not a JPEG"):
         decode_jpeg(b"\x89PNG\r\n")
 

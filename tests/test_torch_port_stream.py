@@ -121,6 +121,55 @@ def test_track_predictor_matches_jax(pair, tmp_path):
         np.testing.assert_array_equal(g.track_id, r.track_id[r.cls == 1])
 
 
+def test_track_predictor_on_mixed_formats_matches_jax(pair, tmp_path):
+    """The JAX TrackPredictor (device_preprocess=True) and the port's over
+    one folder of 64x96 frames of the same static scene: CMYK JPEG (PIL's,
+    quality 95), 16-bit big-endian Deflate TIFF with the predictor, and
+    PIL's JPEG-compressed TIFF in turn, which the port decodes in its own
+    C. Paths and frames equal, ids and classes equal, boxes within 1e-3,
+    conf within 1e-5."""
+    import importlib.util
+
+    from PIL import Image
+
+    from mo_yolo_tpu.engine.predictor import TrackPredictor as JPredictor
+    from mo_yolo_tpu_torch.engine.predictor import TrackPredictor
+    from tests.torch_port_common import ROOT
+    spec = importlib.util.spec_from_file_location(
+        "tiff_stream_fixtures", ROOT / "tests" / "data" / "tiff" /
+        "make_fixtures.py")
+    tf = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tf)
+    jm, v, pm = pair
+    frames = _static_scene(6, (64, 96), seed=2)
+    for i, img in enumerate(frames):
+        if i % 3 == 0:
+            cmyk = np.concatenate([255 - img, np.zeros_like(img[..., :1])],
+                                  -1)
+            Image.frombytes("CMYK", (96, 64), cmyk.tobytes()).save(
+                tmp_path / f"{i:03d}.jpg", quality=95)
+        elif i % 3 == 1:
+            (tmp_path / f"{i:03d}.tif").write_bytes(tf.write_tiff(
+                img.astype(np.int64) * 257 + 100, 2, bits=16, compression=8,
+                predictor=2, order=">"))
+        else:
+            Image.fromarray(img).save(tmp_path / f"{i:03d}.tif",
+                                      compression="jpeg")
+    want = list(JPredictor(jm, v, imgsz=(64, 96), conf=0.5,
+                           device_preprocess=True).stream(str(tmp_path)))
+    got = list(TrackPredictor(pm, imgsz=(64, 96), conf=0.5,
+                              device="cpu").stream(str(tmp_path)))
+    assert len(got) == len(want) == len(frames)
+    assert sum(len(r) for r in want) > 0
+    for g, w in zip(got, want):
+        assert g.path == w.path and g.orig_shape == w.orig_shape
+        np.testing.assert_array_equal(g.orig_img, w.orig_img)
+        np.testing.assert_array_equal(g.track_id, w.track_id)
+        np.testing.assert_array_equal(g.cls, w.cls)
+        np.testing.assert_allclose(g.boxes_xyxy, w.boxes_xyxy, atol=1e-3)
+        np.testing.assert_allclose(g.conf, w.conf, atol=1e-5)
+
+
 # the track configs beside yolo_track and tiny_track, each cut to YOLOv8-n
 # multiples (its rows, class count and head row kept); yolo_mot ends in an
 # RTDETRDecoder row and has one class, yolo_track_rare has a 1024-channel
