@@ -138,9 +138,28 @@ Phases, each printed as one JSON line:
    times a step through the trainer, the host's decoding, augmentation
    and loading a clip, the device's idle share and the val frames/s; then,
    in a subprocess with deterministic algorithms, a run resumed from
-   `last_full` after its first epoch against two uninterrupted runs, on
+   `last_full` after its first epoch against an uninterrupted run (a
+   second one only where they differ), on
    the first sequence alone at accumulate 2 (saved mid-accumulation, the
    resumed epoch makes the update);
+   distributed: data parallelism over two ranks on the one card, each a
+   process of its own: first NCCL's answer to two ranks on one device
+   (`parallel.distributed.initialize()` as torchrun starts a rank,
+   LOCAL_RANK unset, then one all-reduce), printed on a line of its own;
+   where NCCL refuses, the ranks build a gloo group over CUDA tensors,
+   which `initialize()` takes as it is. Then one f32 step (TF32 off) of
+   `make_sharded_train_step` at full `yolo_track` width, 1536x800, 5-frame
+   clips, remat, one clip a rank, against one process's step on both
+   clips: loss terms to 1e-5, gradients and BatchNorm statistics to 1e-3
+   of each tensor's max (the sampling offsets' gradients 0.25), the
+   gradient norm within its triangle bound, the ranks' gradients equal
+   bit for bit, with the margins printed; then `MOTRTrack.train` at batch
+   2 over the two ranks, bf16 autocast, on 4 x 5 1080p frames (one epoch
+   of 2 steps, validation on each rank): both ranks' parameters, buffers,
+   EMA and optimizer state equal bit for bit, the run's files written by
+   rank 0 alone, 60 K1, 30 K2 and 15 JV launches a rank's step and 6 K1
+   and 1 greedy a rank's val frame, seconds a step beside one process's
+   bf16 step on the same batch of 2;
 12. train_in_context: one f32 step at 320x320 with the kernels, one with
    the plain sampler and one with the kernels without remat, holding the
    loss and every parameter's gradient; then the same with clips of 256
@@ -233,8 +252,10 @@ Phases, each printed as one JSON line:
    through `NAS(cfg, imgsz=640)` and yolov8-seg (x) through
    `_TaskModel("segment")`, f32 with TF32 off, 4 1080p frames each (one
    audited greedy launch an image and nothing else, parameters,
-   first-frame seconds), and the v6 graph's `pt2` program equal to its
-   eager step.
+   first-frame seconds), yolov5-p6's `predict(augment=True)` on one frame
+   (its TTA sides rounded to its stride 64; one audited greedy launch
+   over the three scales' union), and the v6 graph's `pt2` program equal
+   to its eager step.
 
 Every greedy call of the slice and multistream eager passes, the val
 phase's instrumented pass, each slice_configs frame, the cli `predict`
@@ -3453,12 +3474,13 @@ class _Interrupt(Exception):
 def trainer_resume_runs(arg: str) -> int:
     """Run in a subprocess by `phase_trainer` with CUBLAS_WORKSPACE_CONFIG
     set: under `torch.use_deterministic_algorithms(True, warn_only=True)`,
-    two uninterrupted `MOTRTrack.train` runs (A, B) and one stopped after
-    its first epoch and resumed from `last_full` (C), validation off, at
-    accumulate RESUME_ACCUMULATE; writes the differences of B and C from A,
-    A's updates and its optimizer tensors that are not zero, the epoch-1
-    results.csv rows and the operations that warned of no deterministic
-    form, as json."""
+    an uninterrupted `MOTRTrack.train` run (A) and one stopped after its
+    first epoch and resumed from `last_full` (C), validation off, at
+    accumulate RESUME_ACCUMULATE, and where C differs from A a second
+    uninterrupted run (B) that says how far two runs part; writes the
+    differences of C (and B) from A, A's updates and its optimizer tensors
+    that are not zero, the epoch-1 results.csv rows and the operations that
+    warned of no deterministic form, as json."""
     import warnings
 
     import torch
@@ -3479,7 +3501,10 @@ def trainer_resume_runs(arg: str) -> int:
     states, rows = {}, {}
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
-        for run in ("A", "B", "C"):
+        for run in ("A", "C", "B"):
+            if run == "B" and rows["C"] == rows["A"] and \
+                    _state_diff(states["A"], states["C"])["differ"] == 0:
+                break
             save_dir = Path(cfg["dir"]) / run
             tracker = new_tracker()
             got = {}
@@ -3510,14 +3535,16 @@ def trainer_resume_runs(arg: str) -> int:
             del tracker, got
     ops = sorted({str(w.message).split(" does not have")[0][:160]
                   for w in caught if "deterministic" in str(w.message)})
-    out = {"b_vs_a": _state_diff(states["A"], states["B"]),
+    out = {"b_vs_a": _state_diff(states["A"], states["B"])
+           if "B" in states else None,
            "c_vs_a": _state_diff(states["A"], states["C"]),
            "updates_a": int(states["A"]["count"]),
            "moments_moved_a": sum(
                bool(v.any()) for k, v in states["A"].items()
                if k.startswith("opt/")),
            "rows_equal_c_a": rows["C"] == rows["A"],
-           "rows_equal_b_a": rows["B"] == rows["A"],
+           "rows_equal_b_a": rows["B"] == rows["A"] if "B" in rows
+           else None,
            "rows_a": rows["A"], "nondeterministic_ops": ops}
     Path(cfg["out"]).write_text(json.dumps(out))
     return 0
@@ -3540,11 +3567,13 @@ def phase_trainer(cfg="yolo_track", imgsz="1536x800", device=None,
     over the loading and step of epoch 1's last clip (torch.profiler), the
     seconds at which each trainer event fired, and the epoch-end evaluation's
     frames/s. Then, in a subprocess with deterministic algorithms, a run
-    resumed after its first epoch against two uninterrupted ones, on the
+    resumed after its first epoch against an uninterrupted one, on the
     first sequence alone (one step an epoch, accumulate RESUME_ACCUMULATE,
     so that the resumed epoch makes the one update, which is checked): bit
-    for bit where those two are; else the non-deterministic operations are
-    named and the resumed run is held to twice their difference."""
+    for bit, unless a second uninterrupted run (made only where the two
+    differ) parts from the first too; then the non-deterministic
+    operations are named and the resumed run is held to twice that
+    difference."""
     import dataclasses
     import os
     import tempfile
@@ -3729,8 +3758,9 @@ def phase_trainer(cfg="yolo_track", imgsz="1536x800", device=None,
     per_clip["decode_epoch0"] = float(np.sum(host["decode"])) / max(n_steps, 1)
     per_clip["loader"] = float(np.median(host["loader"])) if host["loader"] \
         else None
-    deterministic = resume["b_vs_a"]["differ"] == 0 and \
-        resume["rows_equal_b_a"]
+    # B runs only where C differs from A
+    deterministic = resume["b_vs_a"] is None or (
+        resume["b_vs_a"]["differ"] == 0 and resume["rows_equal_b_a"])
     rec = {"cfg": cfg, "imgsz": imgsz, "dtype": dtype,
            "card": card_line() if dev.type == "cuda" else None,
            "fixture": {"sequences": n_seq, "frames": n_frames,
@@ -3794,6 +3824,607 @@ def phase_trainer(cfg="yolo_track", imgsz="1536x800", device=None,
               f"trainer: resumed {resume['c_vs_a']} against uninterrupted "
               f"{resume['b_vs_a']}")
     return rec
+
+
+# ------------------------------------------------------------- distributed
+
+# two ranks of one process group on the one card: the step of a global
+# clip of DIST_BATCH (one clip a rank) against one process's, then
+# `MOTRTrack.train` at batch DIST_BATCH on DIST_SEQS sequences of CLIP_LEN
+# frames (DIST_SEQS clips: 2 steps, one epoch; the last sequence doubles as
+# val)
+DIST_RANKS, DIST_BATCH, DIST_SEQS = 2, 2, 4
+# the step against one process, as tests/test_torch_port_distributed.py
+# holds it on the CPU: loss terms to 1e-5 relative, each gradient and
+# BatchNorm statistic to 1e-3 of its tensor's largest magnitude, the
+# sampling offsets' gradients to 0.25 (the sampler's derivative in the
+# location jumps at pixel edges), the gradient norm by
+# `tests/torch_port_common.grad_norm_margins`. That holds the CPU test's
+# own step (tiny_track at 64², every anchor a query) on the card. At full
+# width and random weights the step is chaotic at f32 rounding: every
+# parameter moved by one ulp moved the loss terms by up to 0.85 % and 453
+# of 469 gradient tensors by more than 1e-3 of their max on an H100 (this
+# phase's `one_ulp_vs_one_process`; the port's f64 step keeps f32
+# BatchNorm statistics and was as chaotic). So
+# the full-width step holds what rounding cannot move (BatchNorm
+# statistics, the object count, the gradient norm, the ranks' equality)
+# and its loss terms and gradients within DIST_FLOOR_MULT of the same
+# step's own one-ulp spread: the largest loss-term error and the median
+# gradient error.
+DIST_METRIC_RTOL, DIST_TENSOR_TOL, DIST_OFFSETS_TOL = 1e-5, 1e-3, 0.25
+DIST_FLOOR_MULT = 4.0
+DIST_NCCL_TIMEOUT, DIST_WORK_TIMEOUT = 60, 600     # seconds a launch
+# the files a run writes (on rank 0 alone)
+RUN_FILES = ("results.csv", "last", "best", "last_full",
+             "last_full.config.json", "events.jsonl")
+
+
+def record_writes(under, writes: list) -> None:
+    """An audit hook that appends (event, path relative to `under`) for
+    every file opened for writing and every directory made, file renamed
+    or removed under `under`: torch.save opens its file in C++, but the
+    port's checkpoint writer renames it into place."""
+    under = str(Path(under).resolve())
+    write_flags = os.O_WRONLY | os.O_RDWR | os.O_CREAT | os.O_APPEND
+
+    def rel(p):
+        try:
+            p = os.path.abspath(os.fsdecode(p))
+        except TypeError:         # a file descriptor
+            return None
+        inside = p == under or p.startswith(under + os.sep)
+        return os.path.relpath(p, under) if inside else None
+
+    def hook(event, args):
+        if event == "open":
+            path, mode, flags = args
+            writing = any(c in (mode or "") for c in "wax+") or \
+                bool((flags or 0) & write_flags)
+            r = rel(path) if writing else None
+        elif event in ("os.mkdir", "os.remove", "os.rmdir"):
+            r = rel(args[0])
+        elif event == "os.rename":
+            r = rel(args[1])
+        else:
+            return
+        if r is not None:
+            writes.append((event, r))
+    sys.addaudithook(hook)
+
+
+def tensor_digests(tensors) -> dict:
+    """The SHA-256 of each tensor's bytes, by name."""
+    import hashlib
+
+    import torch
+    return {k: hashlib.sha256(v.detach().reshape(-1).contiguous().cpu()
+                              .view(torch.uint8).numpy().tobytes())
+            .hexdigest() for k, v in tensors.items()}
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def dist_clip(imgsz, nc, device):
+    """The step check's global clip: DIST_BATCH `synthetic_clip`s (seeds
+    1, 2, ...) side by side."""
+    import torch
+
+    from mo_yolo_tpu_torch.data.letterbox import to_hw
+    clips = [synthetic_clip(CLIP_LEN, to_hw(imgsz), nc, seed=1 + b,
+                            device=device) for b in range(DIST_BATCH)]
+    return {k: torch.cat([c[k] for c in clips], 1) for k in clips[0]}
+
+
+def dist_step(make, cfg, imgsz, device, jitter=False, **model_kw):
+    """One f32 training step (TF32 off) of `make(model, lcfg, tcfg)`
+    (remat, CDN, track dropout and FP injection as `TrainConfig` has them)
+    at `cfg`'s width from seed 0 on `dist_clip`: its metrics, gradients
+    and BatchNorm running statistics (on the host), seconds and launches.
+    With `jitter` every parameter is first moved by about one f32 ulp."""
+    import torch
+
+    from mo_yolo_tpu_torch.models.tracking_model import build_tracking_model
+    from mo_yolo_tpu_torch.train.losses import LossConfig
+    from mo_yolo_tpu_torch.train.train_step import TrainConfig
+    on_card = torch.device(device).type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    with no_tf32():
+        model = build_tracking_model(cfg, dtype="float32", device=device,
+                                     seed=0, **model_kw)
+        if jitter:
+            g = torch.Generator().manual_seed(5)
+            with torch.no_grad():
+                for p in model.parameters():
+                    sign = torch.randint(0, 2, p.shape, generator=g) * 2 - 1
+                    p.mul_(1 + 2.0 ** -23 * sign.to(p.device, p.dtype))
+        init_fn, step_fn = make(model, LossConfig(nc=model.spec.nc),
+                                TrainConfig(clip_len=CLIP_LEN))
+        ts = init_fn()
+        clip = dist_clip(imgsz, model.spec.nc, device)
+        gen = torch.Generator(device=device).manual_seed(0)
+        sync()
+        reset_counts()
+        t = time.perf_counter()
+        ts, m = step_fn(ts, clip, gen)
+        sync()
+        secs = time.perf_counter() - t
+        launches = counts()
+    out = {"metrics": {k: float(v) for k, v in m.items()},
+           "grads": {n: (p.grad if p.grad is not None
+                         else torch.zeros_like(p)).detach().cpu()
+                     for n, p in model.named_parameters()},
+           "stats": {n: b.detach().cpu() for n, b in model.named_buffers()
+                     if "running" in n},
+           "seconds": secs, "launches": launches,
+           "n_layers": len(model.head.decoder.decoder.layers)}
+    del ts, model
+    if on_card:
+        torch.cuda.empty_cache()
+    return out
+
+
+def dist_small_step(make, device):
+    """The CPU test's step (`tests/torch_port_dist_worker._step`: tiny_track
+    at 64², every anchor a query, CDN, dropout and FP injection on) of
+    `make` on `device`, f32 with TF32 off: as `dist_step` records it."""
+    from tests import torch_port_dist_worker as worker
+    with no_tf32():
+        reset_counts()
+        r = worker._step(make, device=device)
+        launches = counts()
+    return {"metrics": {k: float(v) for k, v in r["metrics"].items()},
+            **{part: {n: t.cpu() for n, t in r[part].items()}
+               for part in ("grads", "stats")}, "launches": launches}
+
+
+def _dist_nccl(rank: int) -> dict:
+    """`initialize()` as torchrun would run it (LOCAL_RANK unset: the
+    rank's card is rank modulo the cards), then one all-reduce on the
+    card: the answer NCCL gives two ranks on one device."""
+    import torch
+    import torch.distributed as dist
+
+    from mo_yolo_tpu_torch.parallel import distributed as D
+    rec = {"rank": rank}
+    try:
+        D.initialize()
+        rec["backend"] = dist.get_backend()
+        x = torch.full((1,), float(rank + 1), device="cuda")
+        dist.all_reduce(x)
+        torch.cuda.synchronize()
+        rec.update(ran=True, all_reduce=float(x))
+    except Exception as e:          # the answer is what is recorded
+        lines = [s.strip() for s in str(e).splitlines() if s.strip()] or \
+            [type(e).__name__]
+        rec.update(ran=False, error_type=type(e).__name__, error=lines[0],
+                   detail=[s for s in lines[1:]
+                           if "Duplicate" in s or "invalid" in s][:2])
+    return rec
+
+
+def _dist_work(rank: int, out: Path, cfg: dict) -> dict:
+    """Steps B and C of `phase_distributed` on one rank."""
+    import torch
+    import torch.distributed as dist
+
+    from mo_yolo_tpu_torch import MOTRTrack
+    from mo_yolo_tpu_torch.parallel import distributed as D
+    from mo_yolo_tpu_torch.parallel.mesh import make_sharded_train_step
+    device = cfg["device"]
+    on_card = device == "cuda"
+    if cfg["backend"] == "gloo":
+        if on_card:
+            torch.cuda.set_device(0)
+        dist.init_process_group(
+            "gloo", init_method=f"tcp://127.0.0.1:{cfg['port']}",
+            world_size=DIST_RANKS, rank=rank)
+    check(D.initialize() is True, f"rank {rank}: initialize() found no "
+          f"group of {DIST_RANKS}")
+    world = D.global_mesh()
+    rec = {"rank": rank, "world": list(world),
+           "backend": dist.get_backend(), "step": {}}
+    writes = []
+    record_writes(out / "runs", writes)
+    # B: the sharded step, this rank's clip of the global one, at full
+    # width and as the CPU test takes it
+    for name, step in (
+            ("full", lambda: dist_step(make_sharded_train_step, cfg["cfg"],
+                                       cfg["imgsz"], device,
+                                       **cfg["model_kw"])),
+            ("small", lambda: dist_small_step(make_sharded_train_step,
+                                              device))):
+        r = step()
+        rec["step"][name] = {
+            "metrics": r["metrics"], "seconds": r.get("seconds"),
+            "launches": r["launches"], "grads": tensor_digests(r["grads"]),
+            "stats": tensor_digests(r["stats"])}
+        if rank == 0:
+            torch.save({k: r[k] for k in ("grads", "stats")},
+                       out / f"step_{name}_rank0.pt")
+        del r
+    # C: the trainer, batch DIST_BATCH over the ranks, bf16 autocast
+    tracker = MOTRTrack(cfg["cfg"], nc=cfg["nc"], imgsz=cfg["imgsz"],
+                        dtype="bfloat16" if on_card else "float32", seed=0,
+                        device=device, **cfg["model_kw"])
+    seen, per_step, per_val, stamps = {}, [], [], []
+
+    def on_epoch_start(**kw):
+        reset_counts()
+        stamps.append(time.perf_counter())
+
+    def on_batch_end(trainer=None, **kw):
+        if on_card:
+            torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+        per_step.append(counts())
+        reset_counts()
+
+    def on_val(trainer=None, **kw):
+        per_val.append(counts())
+        reset_counts()
+        seen["trainer"] = trainer
+    tracker.callbacks.add("on_train_epoch_start", on_epoch_start)
+    tracker.callbacks.add("on_train_batch_end", on_batch_end)
+    tracker.callbacks.add("on_train_epoch_end", on_val)
+    tracker.callbacks.add("on_train_end", on_val)
+    metrics = tracker.train(cfg["yaml"], save_dir=str(out / "runs" / "run"),
+                            batch=DIST_BATCH, clip_len=CLIP_LEN, epochs=1,
+                            log_every=1)
+    trainer = seen["trainer"]
+    rec["trainer"] = {
+        "batch": trainer.batch, "steps_per_epoch": trainer.steps_per_epoch,
+        "metrics": {k: float(v) for k, v in metrics.items()},
+        "launches_per_step": per_step, "launches_per_val": per_val,
+        "step_s": list(np.diff(stamps)),
+        "state": tensor_digests(state_tensors(trainer.train_state))}
+    rec["writes"] = writes
+    return rec
+
+
+def dist_rank(arg: str) -> int:
+    """One rank of `phase_distributed`, run in its own process with
+    MASTER_ADDR, MASTER_PORT, WORLD_SIZE and RANK set and LOCAL_RANK
+    unset; `arg` is json: `mode` "nccl" (Step A) or "work" (Steps B and
+    C), `dir` where the rank writes rank<r>_<mode>.json, and for "work"
+    the backend, the gloo port, the config, the dataset yaml and nc."""
+    cfg = json.loads(arg)
+    rank, out = int(os.environ["RANK"]), Path(cfg["dir"])
+    if cfg["mode"] == "nccl":
+        rec = _dist_nccl(rank)
+        (out / f"rank{rank}_nccl.json").write_text(json.dumps(rec))
+        sys.stdout.flush()
+        # a communicator that failed is left to the end of the process
+        os._exit(0)
+    import torch.distributed as dist
+    if "tracker" in cfg["model_kw"]:
+        from mo_yolo_tpu_torch.models.tracker import TrackerConfig
+        cfg["model_kw"]["tracker"] = TrackerConfig(
+            **cfg["model_kw"]["tracker"])
+    rec = _dist_work(rank, out, cfg)
+    (out / f"rank{rank}_work.json").write_text(json.dumps(rec))
+    dist.destroy_process_group()
+    return 0
+
+
+def _run_ranks(cfg: dict, timeout: float, late_ok: bool = False):
+    """DIST_RANKS processes of `dist_rank(cfg)` with the torchrun variables
+    (a free port) and LOCAL_RANK unset; each rank's record. A rank that
+    fails fails the phase, and so does one that outlives `timeout` unless
+    `late_ok` (then None); every rank is ended."""
+    env = {k: v for k, v in os.environ.items() if k != "LOCAL_RANK"}
+    # the host's cores shared among the ranks, as torchrun shares them
+    env.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(_free_port()),
+               WORLD_SIZE=str(DIST_RANKS), PYTHONPATH=str(ROOT),
+               OMP_NUM_THREADS=str(max((os.cpu_count() or 1) // DIST_RANKS,
+                                       1)))
+    arg = json.dumps(cfg)
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", "import sys, chip_smoke; "
+         "sys.exit(chip_smoke.dist_rank(sys.argv[1]))", arg],
+        cwd=str(ROOT), env=dict(env, RANK=str(r)), stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for r in range(DIST_RANKS)]
+    outs, late = [], False
+    try:
+        t_end = time.perf_counter() + timeout
+        for p in procs:
+            try:
+                outs.append(p.communicate(
+                    timeout=max(t_end - time.perf_counter(), 1))[0])
+            except subprocess.TimeoutExpired:
+                late = True
+                break
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    if late and late_ok:
+        return None
+    check(not late, f"distributed {cfg['mode']}: the ranks outlived "
+          f"{timeout} s")
+    for r, (p, o) in enumerate(zip(procs, outs)):
+        check(p.returncode == 0, f"distributed {cfg['mode']}: rank {r} "
+              f"exited {p.returncode}:\n{o[-3000:]}")
+    return [json.loads((Path(cfg["dir"]) / f"rank{r}_{cfg['mode']}.json")
+                       .read_text()) for r in range(DIST_RANKS)]
+
+
+def _dist_margins(got, want):
+    """A step's margins against another (`dist_step` records): the loss
+    terms' relative errors, the gradient norm's (`grad_norm_margins`),
+    each gradient's and BatchNorm statistic's largest error over its
+    tensor's largest magnitude, and the tensors past the CPU test's
+    tolerances."""
+    from tests.torch_port_common import grad_norm_margins
+    gn = grad_norm_margins(got["metrics"]["grad_norm"],
+                           want["metrics"]["grad_norm"], got["grads"],
+                           want["grads"])
+    rec = {"metric_rel_err": {
+        k: abs(got["metrics"][k] - w) / max(abs(w), 1e-30)
+        for k, w in want["metrics"].items() if k != "grad_norm"},
+        "grad_norm": {**gn, "gap_over_bound": gn["gap"] / gn["bound"]},
+        "over_tolerance": []}
+    rec["metric_max_rel_err"] = max(rec["metric_rel_err"].values())
+    for part in ("grads", "stats"):
+        rel = {n: float((got[part][n].double() - w.double()).abs().max()) /
+               (float(w.abs().max()) or 1.0)
+               for n, w in want[part].items()}
+        for n, e in rel.items():
+            offsets = part == "grads" and "sampling_offsets" in n
+            if e > (DIST_OFFSETS_TOL if offsets else DIST_TENSOR_TOL):
+                rec["over_tolerance"].append([part, n, e])
+        top = sorted(rel, key=rel.get, reverse=True)
+        rec[part] = {"tensors": len(rel),
+                     "within_tensor_tol": sum(
+                         e <= DIST_TENSOR_TOL for e in rel.values()),
+                     "median_rel_err": float(np.median(list(rel.values()))),
+                     "max_rel_err": rel[top[0]],
+                     "worst": [[n, rel[n]] for n in top[:3]]}
+    return rec
+
+
+def _dist_holds(m, floor=None) -> bool:
+    """The checks on `_dist_margins` `m`. Without `floor`, the CPU test's
+    own: the loss terms, each gradient and statistic, the gradient norm.
+    With `floor` (the same step's margins with every parameter moved one
+    ulp), what rounding cannot move (the gradient norm within its bound
+    and true to its own gradients, the BatchNorm statistics within
+    DIST_TENSOR_TOL, the object count exact), and the largest loss-term
+    error and the median gradient error within DIST_FLOOR_MULT of the
+    floor's."""
+    from tests.torch_port_common import GRAD_NORM_SELF_RTOL
+    gn = m["grad_norm"]
+    ok = gn["gap"] <= gn["bound"] and gn["self_rel"] <= GRAD_NORM_SELF_RTOL \
+        and m["metric_rel_err"]["num_objects"] == 0.0 and \
+        m["stats"]["max_rel_err"] <= DIST_TENSOR_TOL
+    if floor is None:
+        return ok and m["metric_max_rel_err"] <= DIST_METRIC_RTOL and \
+            not m["over_tolerance"]
+    return ok and m["metric_max_rel_err"] <= \
+        DIST_FLOOR_MULT * floor["metric_max_rel_err"] and \
+        m["grads"]["median_rel_err"] <= \
+        DIST_FLOOR_MULT * floor["grads"]["median_rel_err"]
+
+
+def phase_distributed(cfg="yolo_track", imgsz="1536x800", device=None,
+                      hw=VAL_HW, **model_kw):
+    """Data parallelism over two ranks on the one card, at `cfg`'s width:
+
+    - A: two ranks join through `parallel.distributed.initialize()` as
+      torchrun would start them, LOCAL_RANK unset, and run one all-reduce
+      on the card: NCCL's answer to two ranks on one device (refused, or
+      ran). Where it ran, the ranks use NCCL below; else each builds a gloo
+      group over CUDA tensors, which `initialize()` takes as it is;
+    - B: one f32 training step (TF32 off, the kernels) of
+      `parallel.mesh.make_sharded_train_step` on a global clip of 2, one
+      clip a rank, against one process's `make_train_step` on the same
+      clip: at full width (remat, 5-frame clips; held as DIST_FLOOR_MULT
+      says, beside the step's own one-ulp spread) and the CPU test's step
+      (held to its tolerances); the ranks' gradients and statistics equal
+      bit for bit; 60 K1, 30 K2 and 15 JV launches a rank's full step;
+    - C: `MOTRTrack.train` at batch 2 over the two ranks, bf16 autocast, on
+      `mot_fixture` (DIST_SEQS x CLIP_LEN 1080p frames): one epoch of 2
+      steps, validation on each rank; both ranks' state (parameters,
+      buffers, EMA, optimizer) equal bit for bit, the run's files written
+      by rank 0 alone, 60 K1, 30 K2 and 15 JV launches a rank's step and 6
+      K1 and 1 greedy a rank's val frame; seconds a step beside one
+      process's bf16 step on the same global batch.
+
+    `device="cpu"` rehearses B and C at a small `cfg` over gloo (no Step
+    A, no launch counts)."""
+    import dataclasses
+    import tempfile
+
+    import torch
+
+    from mo_yolo_tpu_torch.data import dataset as ds_mod
+    from mo_yolo_tpu_torch.data.mot_challenge import convert_mot_to_yolo
+    from mo_yolo_tpu_torch.train.train_step import make_train_step
+    device = device or "cuda"
+    on_card = device == "cuda"
+    card = card_line() if on_card else None
+    rec = {"cfg": cfg, "imgsz": imgsz, "ranks": DIST_RANKS,
+           "batch": DIST_BATCH, "clip_len": CLIP_LEN, "card": card}
+    if on_card:
+        torch.cuda.empty_cache()
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        tmp = Path(tmp)
+        # A: NCCL's answer
+        backend = "gloo"
+        if on_card:
+            t = time.perf_counter()
+            nccl = _run_ranks({"mode": "nccl", "dir": str(tmp)},
+                              DIST_NCCL_TIMEOUT, late_ok=True)
+            ran = nccl is not None and all(r["ran"] for r in nccl)
+            backend = "nccl" if ran else "gloo"
+            if nccl is None:
+                answer = f"no answer in {DIST_NCCL_TIMEOUT} s: the ranks " \
+                    f"were ended"
+            elif ran:
+                answer = f"ran: all_reduce gave {nccl[0]['all_reduce']}"
+            else:
+                answer = nccl[0]["error"]
+            rec["nccl"] = {"ran": ran, "answer": answer, "ranks": nccl,
+                           "seconds": time.perf_counter() - t}
+            emit("distributed_nccl", card=card, ran=ran, answer=answer,
+                 detail=nccl and nccl[0].get("detail"),
+                 backend_below=backend)
+        rec["backend"] = backend
+        mot_fixture(tmp / "raw", n_seq=DIST_SEQS, n_frames=CLIP_LEN, hw=hw)
+        yaml_path = convert_mot_to_yolo(str(tmp / "raw"), str(tmp / "yolo"))
+        nc = ds_mod.load_dataset_yaml(yaml_path)["nc"]
+        t = time.perf_counter()
+        ranks = _run_ranks({
+            "mode": "work", "dir": str(tmp), "backend": backend,
+            "port": _free_port(), "device": device, "cfg": cfg,
+            "imgsz": imgsz, "yaml": yaml_path, "nc": nc,
+            "model_kw": {k: dataclasses.asdict(v) if k == "tracker" else v
+                         for k, v in model_kw.items()}}, DIST_WORK_TIMEOUT)
+        rec["ranks_seconds"] = time.perf_counter() - t
+        # B against one process; at full width also the one-ulp spread
+        t = time.perf_counter()
+        rec["step"] = {"tolerances": {
+            "metric_rtol": DIST_METRIC_RTOL, "tensor": DIST_TENSOR_TOL,
+            "sampling_offsets_grads": DIST_OFFSETS_TOL,
+            "floor_mult": DIST_FLOOR_MULT}}
+        for name in ("full", "small"):
+            want = dist_step(make_train_step, cfg, imgsz, device,
+                             **model_kw) if name == "full" else \
+                dist_small_step(make_train_step, device)
+            got = {"metrics": ranks[0]["step"][name]["metrics"],
+                   **torch.load(tmp / f"step_{name}_rank0.pt")}
+            r0, r1 = (x["step"][name] for x in ranks)
+            rec["step"][name] = {
+                "ranks_vs_one_process": _dist_margins(got, want),
+                "ranks_equal": all(r0[k] == r1[k] for k in
+                                   ("grads", "stats", "metrics")),
+                "rank_step_s": [x["step"][name]["seconds"] for x in ranks],
+                "one_process_step_s": want.get("seconds"),
+                "launches_rank": [x["step"][name]["launches"]
+                                  for x in ranks],
+                "launches_one_process": want["launches"]}
+            if name == "full":
+                rec["n_layers"] = want["n_layers"]
+                rec["step"][name]["one_ulp_vs_one_process"] = _dist_margins(
+                    dist_step(make_train_step, cfg, imgsz, device,
+                              jitter=True, **model_kw), want)
+            del want, got
+        # C: one process's bf16 step on the trainer's global batch
+        rec["trainer"] = {k: [r["trainer"][k] for r in ranks] for k in
+                          ("batch", "steps_per_epoch", "step_s",
+                           "launches_per_step", "launches_per_val")}
+        rec["trainer"]["one_process_b2_step_s"] = _one_process_steps(
+            cfg, imgsz, nc, device, model_kw)
+        rec["parent_seconds"] = time.perf_counter() - t
+        states = [r["trainer"]["state"] for r in ranks]
+        rec["trainer"]["state_tensors"] = len(states[0])
+        rec["trainer"]["ranks_state_equal"] = states[0] == states[1]
+        rec["trainer"]["metrics"] = ranks[0]["trainer"]["metrics"]
+        rec["trainer"]["ranks_metrics_equal"] = all(
+            ranks[0]["trainer"]["metrics"][k] ==
+            ranks[1]["trainer"]["metrics"][k]
+            for k in ranks[0]["trainer"]["metrics"] if k != "fps")
+        rows = (tmp / "runs" / "run" / "results.csv").read_text() \
+            .splitlines()
+        rec["trainer"]["sec_per_step_csv"] = [
+            float(r.split(",")[5]) for r in rows[1:]]
+        rec["files"] = {"rank0_wrote": sorted({p for _, p in
+                                               ranks[0]["writes"]}),
+                        "rank1_wrote": ranks[1]["writes"]}
+    emit("distributed", **rec)
+    for r, x in enumerate(ranks):
+        check(x["world"] == [DIST_RANKS, r] and x["backend"] == backend,
+              f"distributed: rank {r} is {x['world']} on {x['backend']}")
+    s = rec["step"]
+    for name, floor in (("full", s["full"]["one_ulp_vs_one_process"]),
+                        ("small", None)):
+        m = s[name]["ranks_vs_one_process"]
+        check(_dist_holds(m, floor),
+              f"distributed {name} step against one process: "
+              f"{m['over_tolerance'][:3]}, loss terms "
+              f"{m['metric_max_rel_err']}, median gradient "
+              f"{m['grads']['median_rel_err']}, grad norm {m['grad_norm']}, "
+              f"statistics {m['stats']['max_rel_err']}")
+        check(s[name]["ranks_equal"], f"distributed {name} step: the ranks' "
+              f"gradients, statistics or metrics differ")
+    tr = rec["trainer"]
+    check(tr["ranks_state_equal"] and tr["ranks_metrics_equal"],
+          "distributed: the ranks' trained state or metrics differ")
+    check(all(b == DIST_BATCH for b in tr["batch"]) and
+          all(n == DIST_SEQS // DIST_BATCH for n in tr["steps_per_epoch"]),
+          f"distributed: batch {tr['batch']}, steps {tr['steps_per_epoch']}")
+    check(all(math.isfinite(v) for v in tr["metrics"].values()),
+          f"distributed: metrics {tr['metrics']}")
+    check(not rec["files"]["rank1_wrote"] and
+          all(f"run/{n}" in rec["files"]["rank0_wrote"] for n in RUN_FILES),
+          f"distributed: files {rec['files']}")
+    if on_card:
+        n_layers = rec["n_layers"]
+        want_step = {**dict.fromkeys(KERNELS, 0),
+                     "ms_deform_attn_fwd": 2 * n_layers * CLIP_LEN,
+                     "ms_deform_attn_bwd": n_layers * CLIP_LEN,
+                     "jv_assign": 3 * CLIP_LEN}
+        want_val = {**dict.fromkeys(KERNELS, 0),
+                    "ms_deform_attn_fwd": n_layers * CLIP_LEN,
+                    "greedy_keep": CLIP_LEN}
+        for c in s["full"]["launches_rank"] + \
+                [s["full"]["launches_one_process"]]:
+            check(c == want_step, f"distributed step: launches {c}, "
+                  f"expected {want_step}")
+        for c in s["small"]["launches_rank"]:
+            check(c["ms_deform_attn_fwd"] > 0 and
+                  c["ms_deform_attn_bwd"] > 0 and c["jv_assign"] > 0,
+                  f"distributed small step: launches {c}")
+        for steps in tr["launches_per_step"]:
+            for c in steps:
+                check(c == want_step, f"distributed trainer: launches {c} "
+                      f"a step, expected {want_step}")
+        for vals in tr["launches_per_val"]:
+            for c in vals:
+                check(c == want_val, f"distributed trainer: launches {c} a "
+                      f"val pass, expected {want_val}")
+    return rec
+
+
+def _one_process_steps(cfg, imgsz, nc, device, model_kw, steps=2):
+    """Seconds of `steps` bf16-autocast training steps (after one warm-up)
+    of one process on a global batch of DIST_BATCH `dist_clip`s, as the
+    trainer runs them on the card (f32 on the CPU)."""
+    import torch
+
+    from mo_yolo_tpu_torch.models.tracking_model import build_tracking_model
+    from mo_yolo_tpu_torch.train.losses import LossConfig
+    from mo_yolo_tpu_torch.train.train_step import (TrainConfig,
+                                                    make_train_step)
+    on_card = torch.device(device).type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    model = build_tracking_model(cfg, nc=nc, dtype="float32", device=device,
+                                 seed=0, **model_kw)
+    init_fn, step_fn = make_train_step(
+        model, LossConfig(nc=nc), TrainConfig(clip_len=CLIP_LEN),
+        compute_dtype=torch.bfloat16 if on_card else None)
+    ts = init_fn()
+    clip = dist_clip(imgsz, nc, device)
+    gen = torch.Generator(device=device).manual_seed(0)
+    out = []
+    for i in range(steps + 1):
+        sync()
+        t = time.perf_counter()
+        ts, m = step_fn(ts, clip, gen)
+        float(m["loss"])
+        sync()
+        if i:
+            out.append(time.perf_counter() - t)
+    del ts, model
+    if on_card:
+        torch.cuda.empty_cache()
+    return out
 
 
 # -------------------------------------------------------------------- main
@@ -5708,6 +6339,23 @@ def zoo_detector(name, cfg, facade, frames, imgsz, device, tmp):
         "frames_per_s": (len(secs) - 1) / sum(secs[1:]),
         "greedy_audit": audit,
         "launches": _only_greedy(f"zoo {name}", len(frames), on_card)}
+    if facade == "nas" and max(spec.out_strides) == 64:
+        # TTA on a stride-64 graph: the sides rounded to 64, one NMS over
+        # the three scales' union
+        reset_counts()
+        sync()
+        with greedy_audit(f"zoo {name} tta") as audit:
+            outs, secs = _timed(m.predict(frames[:1], augment=True))
+            sync()
+        check(len(outs) == 1 and np.isfinite(outs[0].boxes_xyxy).all() and
+              np.isfinite(outs[0].conf).all(),
+              f"zoo {name} tta: non-finite outputs")
+        rec["tta"] = {"seconds": secs[0], "detections": len(outs[0]),
+                      "greedy_audit": audit,
+                      "launches": _only_greedy(f"zoo {name} tta", 1,
+                                               on_card)}
+        check(not on_card or audit["calls"] == 1,
+              f"zoo {name} tta: {audit['calls']} greedy calls audited")
     if name.startswith("yolov6"):
         from mo_yolo_tpu_torch.utils.program_export import (load_program,
                                                             op_counts)
@@ -5764,6 +6412,15 @@ def phase_zoo(device=None, track_imgsz=ZOO_TRACK_IMGSZ, imgsz=ZOO_IMGSZ,
     return rec
 
 
+def _dist_launches(dist, name):
+    """A kernel's launches a rank's step in the distributed phase: the
+    sharded step's and the trainer's first step's, each rank's."""
+    return {"launches_distributed_step_per_rank": [
+        c[name] for c in dist["step"]["full"]["launches_rank"]],
+        "launches_distributed_trainer_step_per_rank": [
+        c[0][name] for c in dist["trainer"]["launches_per_step"]]}
+
+
 def main() -> int:
     if not (ROOT / "mo_yolo_tpu_torch" / "ops" / "csrc").is_dir():
         print("chip_smoke.py: the mo_yolo_tpu_torch package is not beside "
@@ -5815,6 +6472,7 @@ def main() -> int:
     phase_in_context()
     train = phase_train()
     trainer = phase_trainer(train_step_ms=train["step_ms_median"])
+    dist = phase_distributed()
     cli = phase_cli()
     detect = phase_detect()
     rtdetr = phase_detect("RTDETR", DETECT_MODELS[1], epochs=1, steps=2,
@@ -5870,6 +6528,7 @@ def main() -> int:
             "ms_deform_attn_fwd"],
         "launches_zoo_yolo_track": zoo["yolo_track"]["launches"][
             "ms_deform_attn_fwd"],
+        **_dist_launches(dist, "ms_deform_attn_fwd"),
         **{k: k1[k] for k in keys}, "library_ms": None}, {
         "name": "ms_deform_attn_bwd", "route": "cuda",
         "source": f"{csrc}/ms_deform_attn_bwd.cu",
@@ -5879,6 +6538,7 @@ def main() -> int:
             "ms_deform_attn_bwd"],
         "launches_rtdetr_train_step": rtdetr["train"]["launches_per_step"][
             "ms_deform_attn_bwd"],
+        **_dist_launches(dist, "ms_deform_attn_bwd"),
         **{k: k2[k] for k in keys + design}, "library_ms": None}, {
         "name": "greedy_keep", "route": "cuda",
         "source": f"{csrc}/greedy_keep.cu",
@@ -5917,6 +6577,10 @@ def main() -> int:
         "launches_zoo_yolo_track": zoo["yolo_track"]["launches"][
             "greedy_keep"],
         "launches_zoo_detectors": zoo["launches_detectors"]["greedy_keep"],
+        "launches_zoo_p6_tta": zoo["detectors"]["yolov5l6"]["tta"][
+            "launches"]["greedy_keep"],
+        "launches_distributed_val_per_rank": [
+            v[0]["greedy_keep"] for v in dist["trainer"]["launches_per_val"]],
         "launches_fastsam_everything": fastsam["everything"]["launches"][
             "greedy_keep"],
         "launches_sam_generate": {
@@ -5949,6 +6613,7 @@ def main() -> int:
             "jv_assign"],
         "launches_rtdetr_train_step": rtdetr["train"]["launches_per_step"][
             "jv_assign"],
+        **_dist_launches(dist, "jv_assign"),
         **{k: jv[k] for k in keys}, "steps": jv["steps"],
         "walked_steps": jv["walked_steps"],
         "device_us_per_walked_step": jv["device_us_per_walked_step"],

@@ -518,7 +518,10 @@ class MOTRTrack(_ModelFacade):
         `save_dir/last_full`; `accumulate` > 1 accumulates gradients.
         Returns the validator's metrics of the best checkpoint and
         `final_loss` (with a val split), else `{"final_loss": ...}`;
-        `self.model` then holds the best checkpoint's EMA weights."""
+        `self.model` then holds the best checkpoint's EMA weights. Under
+        torchrun (`torchrun --nproc_per_node N -m mo_yolo_tpu_torch track
+        train ...`) each process is one rank of a data-parallel run over
+        the global `batch` (`train/trainer.py`)."""
         from mo_yolo_tpu_torch.train.trainer import TrackTrainer
         trainer = TrackTrainer(self, data=data, epochs=epochs, batch=batch,
                                clip_len=clip_len, lr=lr, max_gt=max_gt,

@@ -6,6 +6,8 @@
         save_format=png save_txt=true save_mot=runs/mot.txt
     python -m mo_yolo_tpu_torch track val model=runs/model data=MOT.yaml
     python -m mo_yolo_tpu_torch track train data=MOT.yaml epochs=1 batch=-1
+    torchrun --nproc_per_node 4 -m mo_yolo_tpu_torch track train \\
+        data=MOT.yaml batch=8          # 4 ranks, one card each, 2 clips a rank
     python -m mo_yolo_tpu_torch track tune data=MOT.yaml epochs=8 max_samples=4
     python -m mo_yolo_tpu_torch track export model=runs/model format=pt
     python -m mo_yolo_tpu_torch track export format=pt2 dynamic=true

@@ -87,18 +87,23 @@ class NASModel(nn.Module):
     @torch.no_grad()
     def predict_step_tta(self, images: torch.Tensor):
         """Test-time augmentation (upstream `_predict_augment`): the
-        `predict_step` contract over the three scales' union, one NMS."""
+        `predict_step` contract over the three scales' union, one NMS.
+        Each scaled side is rounded to a multiple of the graph's largest
+        stride, as upstream's `gs`: 32 on a three-level graph, 64 on a
+        stride-64 one such as yolov5-p6 (the JAX step rounds to 32 there
+        and cannot run it)."""
         B, H, W, _ = images.shape
         dtype = self.model[0].conv.weight.dtype
         x01 = images if images.is_floating_point() else \
             images.to(dtype) * (1.0 / 255.0)
+        gs = max(self.spec.out_strides)
         all_b, all_c = [], []
         for idx, (si, fl) in enumerate(zip(TTA_SCALES, TTA_FLIPS)):
             if si == 1.0:                  # the full scale: the input as is
                 hi, wi, xi = H, W, images
             else:
-                hi = max(int(round(H * si / 32)) * 32, 32)
-                wi = max(int(round(W * si / 32)) * 32, 32)
+                hi = max(int(round(H * si / gs)) * gs, gs)
+                wi = max(int(round(W * si / gs)) * gs, gs)
                 xi = F.interpolate(
                     x01.permute(0, 3, 1, 2), size=(hi, wi), mode="bilinear",
                     align_corners=False,

@@ -7,7 +7,9 @@ inserts the collectives. Here each process is one rank of a process group
 (NCCL between cards, gloo on the CPU) and the collectives are written out:
 `initialize` joins the group from the torchrun variables, `global_mesh`
 describes the world (its size and this process's rank) and
-`shard_host_batch` takes this rank's slice of a batch.
+`shard_host_batch` takes this rank's slice of a batch. A caller that
+built its group itself (gloo over CUDA tensors, say) is taken as it is:
+`initialize` joins nothing where a group exists.
 
 The training step is data-parallel only inside `data_parallel()`
 (`parallel/mesh.make_sharded_train_step` enters it): there BatchNorm takes
@@ -81,6 +83,32 @@ def global_mesh() -> World:
     if not dist.is_initialized():
         return World(1, 0)
     return World(dist.get_world_size(), dist.get_rank())
+
+
+def process_rank() -> int:
+    """This process's rank: the process group's, else the torchrun
+    variables' (a rank that has not joined its group yet), else 0."""
+    if dist.is_initialized():
+        return dist.get_rank()
+    spec = _env_spec()
+    return 0 if spec is None else spec[2]
+
+
+def barrier() -> None:
+    """Wait for every rank; nothing without a group of more than one."""
+    if global_mesh().size > 1:
+        dist.barrier()
+
+
+def min_over_ranks(n: int) -> int:
+    """The smallest of the ranks' `n`; `n` itself without a group."""
+    if global_mesh().size == 1:
+        return n
+    dev = torch.device("cuda", torch.cuda.current_device()) \
+        if dist.get_backend() == "nccl" else torch.device("cpu")
+    t = torch.tensor([n], dtype=torch.int64, device=dev)
+    dist.all_reduce(t, op=dist.ReduceOp.MIN)
+    return int(t)
 
 
 def shard_host_batch(world: World, batch, batch_axis_index: int = 0):

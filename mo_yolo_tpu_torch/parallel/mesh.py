@@ -17,7 +17,7 @@ from typing import Optional
 import torch
 
 from mo_yolo_tpu_torch.parallel import distributed
-from mo_yolo_tpu_torch.train.train_step import make_train_step
+from mo_yolo_tpu_torch.train import train_step
 
 
 def make_sharded_stream_step(model):
@@ -39,7 +39,8 @@ def make_sharded_train_step(model, lcfg, tcfg,
     statistics and the object count over every rank, the gradients summed
     over the ranks once a step. Every rank passes the same clip and a
     generator in the same state, and gets the step of the global batch."""
-    init_fn, step_fn = make_train_step(model, lcfg, tcfg, compute_dtype)
+    init_fn, step_fn = train_step.make_train_step(model, lcfg, tcfg,
+                                                  compute_dtype)
     world = distributed.global_mesh()
     if world.size == 1:
         return init_fn, step_fn

@@ -38,6 +38,25 @@ training step fits the card (`utils/autobatch`: each candidate runs one
 step on a copy of the module). `plots=True` draws the label statistics
 (matplotlib, where it imports), the first three training batches and
 `results.png`, each best-effort: a plot never stops a run.
+
+Data parallelism over ranks (`torchrun --nproc_per_node N -m
+mo_yolo_tpu_torch track train ...`, or a process group the caller built):
+`run` joins the group (`parallel.distributed.initialize`, a no-op in one
+process) and builds its step with `parallel.mesh.make_sharded_train_step`.
+`batch` stays the global batch: every rank loads the same clips and steps
+its rows of them, with the BatchNorm statistics, the object count and the
+gradients summed over the ranks, so every rank holds the same parameters
+after every step. A batch the ranks do not divide raises a ValueError:
+the JAX trainer shards over gcd(batch, devices) devices instead, but a
+rank cannot sit out the group's collectives. `batch=-1` probes one card
+on every rank and takes the smallest answer times the ranks. Rank 0
+alone writes the run's files (results.csv, the plots, `last`,
+`epoch<e>`, `best`, `last_full`; the default loggers run on it alone),
+and every rank waits at a barrier before it reads one (`last_full` on
+resume, `best` at the end). Every rank runs the same epoch-end
+validation on the same parameters, so the fitness, `best` and early
+stopping agree without a broadcast: the JAX program's SPMD reading, in
+which every device runs the one program.
 """
 
 from __future__ import annotations
@@ -50,6 +69,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from mo_yolo_tpu_torch.parallel import distributed, mesh
 from mo_yolo_tpu_torch.train import train_step
 from mo_yolo_tpu_torch.utils.callbacks import default_callbacks
 from mo_yolo_tpu_torch.utils.logging import LOGGER
@@ -249,6 +269,14 @@ class TrackTrainer:
                                                         save_checkpoint,
                                                         save_params)
 
+        distributed.initialize()
+        world = distributed.global_mesh()
+        lead = world.rank == 0          # writes the run's files
+        if self.batch > 0 and self.batch % world.size:
+            raise ValueError(
+                f"batch {self.batch} does not split over {world.size} "
+                f"ranks: give a multiple of {world.size} (every rank takes "
+                f"part in each step's collectives)")
         self.callbacks.fire("on_train_start", trainer=self)
         d = load_dataset_yaml(self.data)
         if self.val_every < 0:
@@ -271,9 +299,12 @@ class TrackTrainer:
         lcfg = LossConfig(nc=model.spec.nc)
         if self.batch == -1:
             t0 = time.perf_counter()
-            self.batch = self._autobatch(model, lcfg, compute_dtype)
+            per_card = distributed.min_over_ranks(
+                self._autobatch(model, lcfg, compute_dtype))
+            self.batch = per_card * world.size
             self.autobatch_seconds = time.perf_counter() - t0
-            LOGGER.info(f"autobatch: batch {self.batch} "
+            LOGGER.info(f"autobatch: {per_card} streams a card x "
+                        f"{world.size} ranks -> batch {self.batch} "
                         f"({self.autobatch_seconds:.1f}s probe)")
         if self.nbs and self.nbs > 0:
             self.accumulate = max(round(self.nbs / max(self.batch, 1)), 1)
@@ -314,8 +345,8 @@ class TrackTrainer:
                                warmup_momentum=self.warmup_momentum,
                                warmup_bias_lr=self.warmup_bias_lr, **wu)
             self.steps_per_epoch = steps_per_epoch
-            init_fn, step = train_step.make_train_step(model, lcfg, tcfg,
-                                                       compute_dtype)
+            init_fn, step = mesh.make_sharded_train_step(model, lcfg, tcfg,
+                                                         compute_dtype)
             return ds, steps_per_epoch, init_fn, step
 
         cur_stage = 0
@@ -329,6 +360,8 @@ class TrackTrainer:
         start_epoch = 0
         resumed_best_fitness = -float("inf")
         last_full = self.save_dir / "last_full"
+        if self.resume:
+            distributed.barrier()
         if self.resume and last_full.exists():
             load_checkpoint(str(last_full), target=ts)
             cfg_json = Path(str(last_full.resolve()) + ".config.json")
@@ -357,8 +390,9 @@ class TrackTrainer:
         LOGGER.info(f"training: {len(ds)} frames, {len(ds.clips)} clips, "
                     f"{steps_per_epoch} steps/epoch x {self.epochs} epochs, "
                     f"clip_len={self.clip_lens}, device={dev}")
-        self.save_dir.mkdir(parents=True, exist_ok=True)
-        if self.plots:
+        if lead:
+            self.save_dir.mkdir(parents=True, exist_ok=True)
+        if self.plots and lead:
             plot_label_stats(ds, self.save_dir)
         csv_path = self.save_dir / "results.csv"
         csv_rows = ["epoch,step,loss,grad_norm,num_objects,sec_per_step"]
@@ -383,7 +417,7 @@ class TrackTrainer:
             loss_dev = []   # device scalars; one fetch at the epoch's end
             for i, clip in enumerate(clip_loader(ds, self.batch, shuffle=True,
                                                  seed=self.seed + epoch)):
-                if self.plots and epoch == start_epoch and i < 3:
+                if self.plots and lead and epoch == start_epoch and i < 3:
                     self._plot_train_batch(clip, i)
                 t0 = time.time()
                 ts, m = step(ts, feeder(clip), gen)
@@ -401,8 +435,10 @@ class TrackTrainer:
                                     step=i, metrics=m)
             # epoch end: the EMA weights are evaluated and saved
             adopt_ema(ts, self.api.model)
-            save_params(str(self.save_dir / "last"), self.api.model)
-            if self.save_period > 0 and (epoch + 1) % self.save_period == 0:
+            if lead:
+                save_params(str(self.save_dir / "last"), self.api.model)
+            if lead and self.save_period > 0 and \
+                    (epoch + 1) % self.save_period == 0:
                 save_params(str(self.save_dir / f"epoch{epoch}"),
                             self.api.model)
             # fitness without validation: minus the mean loss of every step
@@ -415,17 +451,19 @@ class TrackTrainer:
                 LOGGER.info(f"epoch {epoch} val: {metrics}")
             if fitness > best_fitness:
                 best_fitness = fitness
-                save_params(str(self.save_dir / "best"), self.api.model)
+                if lead:
+                    save_params(str(self.save_dir / "best"), self.api.model)
             stop = self.stopper(epoch, fitness)
             # after the fitness and stopper updates, so that a resumed run
             # restores this epoch's best_fitness
-            save_checkpoint(str(last_full), ts,
-                            config={"epoch": epoch, "step": ts.step,
-                                    "best_fitness": best_fitness,
-                                    "stopper_best": self.stopper.best,
-                                    "stopper_best_epoch":
-                                        self.stopper.best_epoch})
-            csv_path.write_text("\n".join(csv_rows) + "\n")
+            if lead:
+                save_checkpoint(str(last_full), ts,
+                                config={"epoch": epoch, "step": ts.step,
+                                        "best_fitness": best_fitness,
+                                        "stopper_best": self.stopper.best,
+                                        "stopper_best_epoch":
+                                            self.stopper.best_epoch})
+                csv_path.write_text("\n".join(csv_rows) + "\n")
             self.callbacks.fire("on_train_epoch_end", trainer=self,
                                 epoch=epoch, metrics=metrics)
             LOGGER.info(f"epoch {epoch} done in {time.time() - t_ep:.1f}s")
@@ -433,7 +471,7 @@ class TrackTrainer:
                 LOGGER.info(f"early stopping at epoch {epoch} "
                             f"(best epoch {self.stopper.best_epoch})")
                 break
-        if self.plots:
+        if self.plots and lead:
             try:
                 from mo_yolo_tpu_torch.utils.plotting import plot_results
                 plot_results(str(csv_path))
@@ -441,6 +479,7 @@ class TrackTrainer:
                 LOGGER.warning(f"plot_results failed: {e}")
         # final evaluation of the best checkpoint: the returned metrics
         # describe `best`, and the facade's model keeps its weights
+        distributed.barrier()
         best_path = self.save_dir / "best"
         if self.val_every and d.get("val") and best_path.exists():
             load_params(str(best_path), target=self.api.model)

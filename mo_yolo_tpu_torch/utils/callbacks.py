@@ -360,7 +360,12 @@ def default_callbacks(save_dir: str = "runs/track",
                       tensorboard: bool = True) -> CallbackBus:
     """A bus with the JSONL logger on the epoch and train ends, writing
     `save_dir/events.jsonl`, and each logger integration whose package
-    imports (and whose credentials are set) where `Settings` enables it."""
+    imports (and whose credentials are set) where `Settings` enables it.
+    In a data-parallel run these write the run's one record from rank 0:
+    any other rank gets an empty bus."""
+    from mo_yolo_tpu_torch.parallel.distributed import process_rank
+    if process_rank() != 0:
+        return CallbackBus()
     try:
         from mo_yolo_tpu_torch.utils.settings import load_settings
         st = load_settings()

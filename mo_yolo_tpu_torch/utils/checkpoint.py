@@ -12,7 +12,9 @@ pickled code, and loads with `torch.load(..., weights_only=True)`.
   accumulation cycle, `acc`), its update count `count` (the schedule's
   step) and its place in the cycle `mini_step` (plain attributes that
   `torch.optim.Optimizer.state_dict()` would drop), and the step. `config`
-  goes beside it as `<path>.config.json`.
+  goes beside it as `<path>.config.json`. In a data-parallel run rank 0
+  writes it and every rank loads the same file (`train/trainer.py`), each
+  onto its own model's device, so the ranks resume in one state.
 - `save_params(path, module)`: inference weights only, the module's
   `state_dict` (upstream keys).
 - `import_torch_weights(pt_path, module)`: an upstream-format `.pt`

@@ -2,6 +2,7 @@
 
 from __future__ import annotations
 
+import os
 from typing import Optional, Union
 
 import torch
@@ -9,9 +10,14 @@ import torch
 
 def resolve_device(device: Optional[Union[str, torch.device]] = None
                    ) -> torch.device:
-    """`None` means the card. A CUDA device on a machine without one raises:
-    the port never carries on on the CPU unless the caller asks for it."""
-    dev = torch.device("cuda" if device is None else device)
+    """`None` means the card: under torchrun (LOCAL_RANK set) this
+    process's card, so that a rank's model is built where its rank of the
+    process group runs. A CUDA device on a machine without one raises: the
+    port never carries on on the CPU unless the caller asks for it."""
+    if device is None:
+        local = os.environ.get("LOCAL_RANK")
+        device = "cuda" if local is None else f"cuda:{int(local)}"
+    dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "no CUDA device is available; pass device='cpu' to run the "

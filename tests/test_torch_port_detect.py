@@ -38,12 +38,15 @@ import jax
 import jax.numpy as jnp
 import optax
 
-from tests.test_torch_port_train_step import (GRAD_NORM_RTOL, GRAD_TOL,
-                                              LOSS_RTOL, OFFSETS_GRAD_TOL,
-                                              TENSOR_TOL)
+from tests.test_torch_port_train_step import (GRAD_TOL, LOSS_RTOL,
+                                              OFFSETS_GRAD_TOL, TENSOR_TOL)
 from tests.torch_port_common import TINY_YAML, numpy_init, randomize_norms
 
 torch.set_num_threads(1)
+
+# the port's f32 gradient norm against its own f64 evaluation of the step
+# (measured 3e-4 relative)
+GRAD_NORM_RTOL = 1e-3
 
 BOX_ATOL = 1e-5
 HEAD_IDX = 21           # tiny_track's head row

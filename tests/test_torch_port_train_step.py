@@ -28,7 +28,8 @@ import jax
 import jax.numpy as jnp
 import optax
 
-from tests.torch_port_common import TINY_YAML, randomize_norms
+from tests.torch_port_common import (TINY_YAML, assert_grad_norm,
+                                     randomize_norms)
 
 torch.set_num_threads(1)
 
@@ -44,14 +45,21 @@ LR = 1e-4
 # step by up to +-lr either way: its parameters get 2 lr on top.
 LOSS_RTOL = 1e-4
 TENSOR_TOL = 1e-3
-# Gradients to 5e-3 of each tensor's largest magnitude (and the gradient
-# norm to 1e-3 relative). The JAX package's BatchNorm takes the batch
+# Gradients to 5e-3 of each tensor's largest magnitude. The JAX package's
+# BatchNorm takes the batch
 # variance as E[x^2] - E[x]^2, which at the 2x2 P5 map of a 64x64 frame
 # loses precision to cancellation: against an f64 evaluation of the same
 # step, its backbone gradients are off by up to 2.4e-3 of the tensor's
 # max, the port's (two-pass variance) by up to 5e-4.
 GRAD_TOL = 5e-3
-GRAD_NORM_RTOL = 1e-3
+# The gradient norm is held by `torch_port_common.assert_grad_norm`: each
+# package's equals the norm of its own gradients to 1e-5 relative
+# (measured: <= 3.6e-7), and the two differ by no more than ‖g_port −
+# g_jax‖₂ + 1e-6 of JAX's norm (measured: the gap at most 0.66 of that
+# bound, at steps 0-1: 1.473 against 2.249). A relative tolerance of 1e-3
+# on the scalar was stricter than the per-tensor checks above, and failed
+# with some hosts' f32 sums: at step 2 of AdamW |Δ| = 1.695 of 1659.38
+# (1.02e-3), against ‖g_port − g_jax‖₂ = 2.912.
 # The sampling offsets' gradients to 0.25 of their max, which still tells a
 # missing or misplaced gradient (an error of 1) from noise: the bilinear
 # sampler's derivative in the location jumps at pixel edges, and these small
@@ -276,13 +284,14 @@ def test_train_step_matches_jax(runs, optimizer, k):
     assert set(wm) == set(gm)
     for key, w in wm.items():
         assert np.isfinite(gm[key]), key
-        rtol = GRAD_NORM_RTOL if key == "grad_norm" else LOSS_RTOL
-        np.testing.assert_allclose(gm[key], w, rtol=rtol, atol=1e-6,
-                                   err_msg=key)
+        if key != "grad_norm":
+            np.testing.assert_allclose(gm[key], w, rtol=LOSS_RTOL, atol=1e-6,
+                                       err_msg=key)
     assert wm["loss"] > 0 and wm["grad_norm"] > 0
-    _close_per_tensor(got["grads"],
-                      state_dict_from_jax({"params": want["grads"]},
-                                          head_idx=21), "grad", tol=_grad_tol)
+    want_grads = state_dict_from_jax({"params": want["grads"]}, head_idx=21)
+    assert_grad_norm(gm["grad_norm"], wm["grad_norm"], got["grads"],
+                     want_grads)
+    _close_per_tensor(got["grads"], want_grads, "grad", tol=_grad_tol)
     extra = 2 * LR if optimizer == "adamw" else 0.0
     for key in ("params", "ema"):
         _close_per_tensor(got[key],

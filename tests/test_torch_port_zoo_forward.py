@@ -178,9 +178,12 @@ def test_four_level_tta_matches_jax():
     """`predict_step_tta` with four levels (v5-p6's strides 8-64) over a
     head whose outputs depend only on each anchor's index and level: the
     level counts drop the last level at full scale and the first at the
-    smallest, as the JAX step does (its sides are rounded to 32 in both
-    packages, which a stride-64 graph cannot run; the fake head can). The
-    count of levels, not their strides, decides which the step drops."""
+    smallest, as the JAX step does. The count of levels, not their
+    strides, decides which the step drops. At 384² the port's sides
+    (rounded to the largest stride, 64) and the JAX step's (rounded to 32)
+    are the same, 320 and 256, so the two are held to each other; at other
+    sizes the JAX step cannot run a stride-64 graph
+    (`test_jax_tta_still_raises_on_a_stride64_graph`)."""
     from mo_yolo_tpu.models.graph import parse_model_yaml as j_parse
     from mo_yolo_tpu.models.nas import NASModel as JNASModel
     from mo_yolo_tpu_torch.models.graph import parse_model_yaml
@@ -205,7 +208,7 @@ def test_four_level_tta_matches_jax():
     jm = JFake(spec=j_parse(cfg), max_det=1000, conf=0.8)
     pm = Fake(parse_model_yaml(cfg), max_det=1000, conf=0.8)
     assert len(pm.spec.out_strides) == 4
-    x = _frames(128, 2)
+    x = _frames(384, 2)
     want = jax.jit(lambda x: jm.apply({}, x, method=jm.predict_step_tta))(
         jnp.asarray(x))
     got = pm.predict_step_tta(torch.from_numpy(x))
@@ -214,6 +217,77 @@ def test_four_level_tta_matches_jax():
     np.testing.assert_array_equal(got[2].numpy(), np.asarray(want[2]))
     kept = (got[1] > 0).sum(-1)
     assert 10 < int(kept.min()) and int(kept.max()) < 1000
+
+
+# v5-p6's TTA sides at 640²: the scales 1, 0.83 and 0.67 rounded to its
+# largest stride, 64 (531.2 -> 512, 428.8 -> 448); rounded to 32 the 0.83
+# scale's 544 is no multiple of 64
+P6_TTA_SIDES = (640, 512, 448)
+
+
+def test_stride64_tta_is_the_union_of_the_plain_scales():
+    """v5-p6's narrow graph (random weights) through `predict_step_tta` at
+    640² on the CPU: equal to the union built here from the port's plain
+    forward at each scale's side (P6_TTA_SIDES; bilinear antialiased
+    resize, the 0.83 scale flipped and flipped back, boxes scaled back
+    per axis, the full scale's last level and the smallest scale's first
+    dropped), which the step then suppresses once (Queue 3 item 24)."""
+    import torch.nn.functional as F
+    _, _, pm = _era_pair("yolov5-p6")
+    assert pm.spec.out_strides == (8, 16, 32, 64)
+    x = torch.from_numpy(_frames(640))
+    unions, nms = [], pm._nms_norm
+
+    def spy(b, c, hw):
+        unions.append((b, c, hw))
+        return nms(b, c, hw)
+    pm._nms_norm = spy
+    try:
+        got = pm.predict_step_tta(x)
+    finally:
+        del pm._nms_norm
+    H = W = 640
+    parts_b, parts_c = [], []
+    for idx, (side, flip) in enumerate(zip(P6_TTA_SIDES,
+                                           (False, True, False))):
+        xi = x if side == H else F.interpolate(
+            x.permute(0, 3, 1, 2), size=(side, side), mode="bilinear",
+            align_corners=False, antialias=True).permute(0, 2, 3, 1)
+        if flip:
+            xi = torch.flip(xi, [2])
+        with torch.no_grad():
+            b, c = pm(xi)
+        if flip:
+            b = torch.stack([side - b[..., 2], b[..., 1], side - b[..., 0],
+                             b[..., 3]], -1)
+        b = b * (W / side)
+        counts = [(side // s) ** 2 for s in pm.spec.out_strides]
+        assert b.shape[1] == sum(counts)
+        if idx == 0:
+            b, c = b[:, :sum(counts[:-1])], c[:, :sum(counts[:-1])]
+        if idx == len(P6_TTA_SIDES) - 1:
+            b, c = b[:, counts[0]:], c[:, counts[0]:]
+        parts_b.append(b)
+        parts_c.append(c)
+    (ub, uc, hw), = unions
+    assert hw == (H, W)
+    _close(ub.numpy(), torch.cat(parts_b, 1).numpy(), "p6 tta union boxes")
+    _close(uc.numpy(), torch.cat(parts_c, 1).numpy(), "p6 tta union scores")
+    assert got[0].shape == (1, pm.max_det, 4)
+    assert np.isfinite(got[0].numpy()).all() and int((got[1] > 0).sum()) > 0
+
+
+def test_jax_tta_still_raises_on_a_stride64_graph():
+    """The JAX step rounds each TTA side to 32
+    (`mo_yolo_tpu/models/nas.py:91-92`): at 640² the 0.83 scale's 544 px
+    is no multiple of v5-p6's stride 64, and the graph's concatenation of
+    an upsampled map (18²) with its lateral (17²) fails while the step is
+    traced. The port rounds to the largest stride (Queue 3 item 24)."""
+    jm, v, _ = _era_pair("yolov5-p6")
+    with pytest.raises(TypeError, match="Cannot concatenate arrays"):
+        jax.eval_shape(lambda v, x: jm.apply(v, x,
+                                             method=jm.predict_step_tta),
+                       v, jnp.zeros((1, 640, 640, 3)))
 
 
 def test_segment_at_a_capped_width_matches_jax():

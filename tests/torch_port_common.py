@@ -241,3 +241,53 @@ def hide_libjpeg(monkeypatch, build_dir):
     monkeypatch.setattr(cuda_build, "missing_c_deps", missing)
     monkeypatch.setattr(cuda_build, "_loaded_c", {})
     monkeypatch.setattr(cuda_build, "HOST_BUILD_DIR", Path(build_dir))
+
+
+# A reported gradient norm is held by what it is, not by a relative
+# tolerance of its own: each side's equals the norm of the gradients that
+# side reports (to GRAD_NORM_SELF_RTOL, f32 sums against f64), and two
+# sides' norms differ by no more than their gradients do, |‖a‖ − ‖b‖| <=
+# ‖a − b‖ (in f64, over every tensor), plus GRAD_NORM_SLACK of the
+# reference's norm for the f32 sums. A fixed rtol on the scalar is
+# stricter than the per-tensor checks of the gradients it is the norm of,
+# and passes or fails with the host's f32 reduction order.
+GRAD_NORM_SELF_RTOL = 1e-5
+GRAD_NORM_SLACK = 1e-6
+
+
+def grad_norm_margins(norm, ref_norm, grads, ref_grads):
+    """The two checks on a gradient norm, as numbers: `norm` and
+    `ref_norm` the two sides' reported norms, `grads` and `ref_grads` their
+    gradients by name (tensors or arrays, the same names and shapes).
+    Returns the largest relative gap of a side's norm from its own
+    gradients' (`self_rel`), |norm - ref_norm| (`gap`) and its bound
+    ‖grads - ref_grads‖ + GRAD_NORM_SLACK · ref_norm (`bound`)."""
+    assert set(grads) == set(ref_grads)
+
+    def f64(t):
+        return np.asarray(t.detach().cpu().double() if hasattr(t, "detach")
+                          else t, np.float64)
+    sq = sq_ref = sq_diff = 0.0
+    for k in grads:
+        a, b = f64(grads[k]), f64(ref_grads[k])
+        assert a.shape == b.shape, k
+        sq += float((a * a).sum())
+        sq_ref += float((b * b).sum())
+        sq_diff += float(((a - b) ** 2).sum())
+    norm, ref_norm = float(norm), float(ref_norm)
+    own, own_ref = np.sqrt(sq), np.sqrt(sq_ref)
+    return {"self_rel": max(abs(norm - own) / own,
+                            abs(ref_norm - own_ref) / own_ref),
+            "gap": abs(norm - ref_norm),
+            "bound": float(np.sqrt(sq_diff)) + GRAD_NORM_SLACK * ref_norm}
+
+
+def assert_grad_norm(norm, ref_norm, grads, ref_grads, what="grad_norm"):
+    """Both checks of `grad_norm_margins`; returns its margins."""
+    m = grad_norm_margins(norm, ref_norm, grads, ref_grads)
+    assert np.isfinite(float(norm)) and float(norm) > 0, (what, norm)
+    assert m["self_rel"] <= GRAD_NORM_SELF_RTOL, \
+        f"{what}: a side's norm is off its own gradients' by {m['self_rel']}"
+    assert m["gap"] <= m["bound"], \
+        f"{what}: |{norm} - {ref_norm}| > ‖g - g_ref‖ + slack = {m['bound']}"
+    return m
